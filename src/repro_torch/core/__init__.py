@@ -1,0 +1,10 @@
+# The paper's graph engine in PyTorch:
+#   graph/cluster  — Fig.4 compile-time steps 1–4 (host numpy)
+#   semiring       — the NALE MAC/comparator datapath algebra (torch ops)
+#   engine         — sync (BSP) vs async (cluster-dataflow, Gauss-Seidel)
+#   algorithms     — the AlgorithmSpec registry
+#   api            — GraphProcessor session, ExecutionPolicy, QuerySpec
+#   oracles        — numpy reference implementations
+
+from . import algorithms, api, cluster, engine, graph, oracles, \
+    semiring  # noqa: F401

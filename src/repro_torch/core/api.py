@@ -1,0 +1,500 @@
+"""Session API — prepare once, query many (paper Fig. 4 split).
+
+``GraphProcessor`` builds the session; each query then runs against
+cached ``Prepared`` images — the clustering/permutation and the
+device-resident BSR tiles are shared by every algorithm that can use the
+same plan (keyed by semiring, graph variant, direction, normalization and
+tiling), so serving many queries on one graph pays the compile-time
+pipeline once.
+
+    proc = GraphProcessor(g, b=16, num_clusters=64)   # device="cuda"
+    pr   = proc.pagerank()                       # prepares plus_times plan
+    d    = proc.sssp(0)                          # prepares min_plus plan
+    d2   = proc.sssp(5)                          # plan-cache hit: no rework
+    dist = proc.sssp(sources=[0, 5, 9])          # batched: one query axis
+
+The session runs on ``cuda`` unless ``device=`` names another device (the
+tests pass ``device="cpu"``); without a card and without a device it
+raises.  Parts of the JAX package's session that are not ported yet —
+``mode="distributed"``, ``KernelSpec(autotune=True)``, the host runners
+minitri/tricount/dfs and the platform models — are refused with a
+ValueError from ``validate_spec``/``resolve_policy`` that names the
+ROADMAP item, so the degradation ladder never re-runs them as something
+else.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from . import engine as eng
+from .algorithms import (AlgorithmSpec, get_algorithm,  # noqa: F401
+                         register_algorithm, registered_algorithms)
+from .engine import Prepared, RunStats, resolve_device
+from .graph import Graph
+from ..kernels.spec import KernelSpec, as_kernel_spec
+
+MODES = ("sync", "async", "distributed")
+DIST_FLAVORS = ("sync", "async")
+
+# what the port refuses until a later slice brings it (ROADMAP queue 1)
+_UNPORTED_MODE = ("mode='distributed' is not ported yet (ROADMAP queue 1: "
+                  "multi-device engines); use mode='sync' or 'async'")
+_UNPORTED_AUTOTUNE = ("KernelSpec(autotune=True) is not ported yet (ROADMAP "
+                      "queue 1: autotuner and roofline)")
+_UNPORTED_RUNNER = ("{algo!r} runs on a host runner that is not ported yet "
+                    "(ROADMAP queue 1: runner algorithms minitri, tricount, "
+                    "dfs)")
+_UNPORTED_MODELS = ("platform models are not ported yet (ROADMAP queue 1: "
+                    "compile and platform models)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPolicy:
+    """How a query executes — the same fields, normalization and
+    validation as the JAX package's ``ExecutionPolicy``.
+
+    mode:  "sync" (BSP/Jacobi baseline) | "async" (the paper's self-timed
+           cluster-dataflow engine) | "distributed" (accepted here, as in
+           the JAX package; the session refuses it until ported).
+    kernel:  a ``kernels.spec.KernelSpec``; None derives one from ``impl``.
+    impl:  deprecated alias for ``kernel=KernelSpec(impl=...)``.  After
+           construction ``impl`` always equals ``kernel.impl``.
+    query_axis / dist_flavor / local_sweeps:  distributed-engine knobs,
+           validated as in the JAX package.
+    degrade:  graceful-degradation ladder (True by default): when an
+           engine run fails, ``GraphProcessor.run`` retries one rung
+           down (fused/pallas → ref), recording each step in
+           ``Result.extra["degraded"]``.  ValueError/TypeError/KeyError/
+           IndexError never degrade.  ``degrade=False`` fails fast.
+    """
+
+    mode: str = "async"
+    impl: Optional[str] = None
+    damping: float = 0.85
+    tol: float = 1e-6
+    max_sweeps: int = 10_000
+    query_axis: Optional[int] = None
+    dist_flavor: str = "sync"
+    local_sweeps: int = 1
+    kernel: Optional[KernelSpec] = None
+    degrade: bool = True
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}: {self.mode!r}")
+        if self.kernel is not None and not isinstance(self.kernel,
+                                                      KernelSpec):
+            object.__setattr__(self, "kernel", as_kernel_spec(self.kernel))
+        if self.kernel is None:
+            impl = self.impl if self.impl is not None else "ref"
+            if impl == "pallas":
+                warnings.warn(
+                    "ExecutionPolicy(impl='pallas') is deprecated; pass "
+                    "kernel=KernelSpec(impl='pallas', ...) to reach the "
+                    "tiling/fusion/autotune surface",
+                    DeprecationWarning, stacklevel=3)
+            object.__setattr__(self, "kernel", KernelSpec(impl=impl))
+            object.__setattr__(self, "impl", impl)
+        else:
+            if self.impl is not None and self.impl != self.kernel.impl:
+                raise ValueError(
+                    f"impl={self.impl!r} conflicts with kernel.impl="
+                    f"{self.kernel.impl!r}; set only kernel= (impl= is "
+                    "the deprecated alias)")
+            object.__setattr__(self, "impl", self.kernel.impl)
+        if self.mode == "distributed" and self.kernel.impl != "ref":
+            raise ValueError(
+                "the distributed engine shard_maps the ref kernel; "
+                "Pallas calls cannot be SPMD-partitioned — use "
+                "mode='sync'/'async' for kernel.impl='pallas'")
+        if self.query_axis is not None and self.query_axis < 0:
+            raise ValueError(
+                "query_axis must be None (auto), 0 (per-source "
+                f"fallback) or a positive extent: {self.query_axis!r}")
+        if self.dist_flavor not in DIST_FLAVORS:
+            raise ValueError(
+                f"dist_flavor must be one of {DIST_FLAVORS}: "
+                f"{self.dist_flavor!r}")
+        if self.local_sweeps < 1:
+            raise ValueError(
+                f"local_sweeps must be >= 1, got {self.local_sweeps!r}")
+        if self.dist_flavor == "async" and self.mode != "distributed":
+            raise ValueError(
+                "dist_flavor='async' selects the self-timed distributed "
+                f"engine and requires mode='distributed', not "
+                f"{self.mode!r}")
+        if self.local_sweeps != 1 and self.dist_flavor != "async":
+            raise ValueError(
+                f"local_sweeps={self.local_sweeps} needs "
+                "dist_flavor='async'; the bulk-synchronous engine "
+                "exchanges every sweep by construction")
+        if self.dist_flavor == "async" and self.query_axis == 0:
+            raise ValueError(
+                "query_axis=0 (per-source sequential fallback) has no "
+                "async flavor; use query_axis=None or a mesh extent")
+
+    def but(self, **kw) -> "ExecutionPolicy":
+        """Copy with overrides (policy objects are frozen).
+
+        Overriding ``impl=`` or ``kernel=`` alone re-derives the other
+        half of the normalized pair."""
+        if "impl" in kw and "kernel" not in kw:
+            kw["kernel"] = None
+        elif "kernel" in kw and "impl" not in kw:
+            kw["impl"] = None
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanKey:
+    """Everything that determines a ``Prepared`` image for one graph;
+    with the graph's :meth:`Graph.fingerprint` it is globally unique."""
+
+    semiring: str
+    variant: str          # base | unit | undirected | unit_undirected
+    pull: bool
+    normalize: Optional[str]
+    b: int
+    num_clusters: Optional[int]
+    clustered: bool
+    seed: int = 0         # clustering seed (part of plan identity)
+    kernel: Optional[KernelSpec] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class QuerySpec:
+    """One query against a session: algorithm + sources + policy.
+
+    ``params`` are policy-field overrides applied over ``policy``; a
+    plain dict is normalized to sorted tuples so the spec stays hashable.
+    """
+
+    algo: str
+    sources: Tuple[int, ...] = ()
+    batched: bool = False                       # sources is a query axis
+    policy: Optional[ExecutionPolicy] = None    # None → session default
+    params: Union[Mapping[str, float],
+                  Tuple[Tuple[str, float], ...]] = ()
+
+    def __post_init__(self):
+        get_algorithm(self.algo)
+        items = self.params.items() if isinstance(self.params, Mapping) \
+            else ((str(k), v) for k, v in self.params)
+        object.__setattr__(self, "params", tuple(sorted(items)))
+
+
+@dataclasses.dataclass
+class Result:
+    """Uniform query result.  ``values`` is per-vertex output in ORIGINAL
+    vertex ids — shape (n,) for single queries, (Q, n) for batched."""
+
+    values: np.ndarray
+    stats: RunStats
+    prepared: Optional[Prepared]
+    extra: dict
+    policy: Optional[ExecutionPolicy] = None
+    graph: Optional[Graph] = None
+
+    def platform_models(self, sync_stats: Optional[RunStats] = None
+                        ) -> dict:
+        raise ValueError(_UNPORTED_MODELS)
+
+
+def _check_ported(pol: ExecutionPolicy) -> None:
+    if pol.mode == "distributed":
+        raise ValueError(_UNPORTED_MODE)
+    if pol.kernel.autotune:
+        raise ValueError(_UNPORTED_AUTOTUNE)
+
+
+def validate_spec(spec: QuerySpec) -> None:
+    """Raise on specs that can never execute (including what this
+    package has not ported yet)."""
+    a = get_algorithm(spec.algo)
+    if a.runner is not None:
+        raise ValueError(_UNPORTED_RUNNER.format(algo=spec.algo))
+    if a.source_required and not spec.sources:
+        raise ValueError(
+            f"{spec.algo} requires at least one source vertex")
+    given = dict(spec.params)
+    missing = [k for k in a.required_params if k not in given]
+    if missing:
+        raise ValueError(
+            f"{spec.algo} requires params={{{', '.join(repr(m) for m in missing)}: ...}}"
+            f" (e.g. QuerySpec(algo={spec.algo!r}, "
+            f"params={{{missing[0]!r}: 2}}))")
+    if len(spec.sources) > 1 and not spec.batched:
+        raise ValueError(
+            f"{len(spec.sources)} sources with batched=False would "
+            "silently run only the first; set batched=True (or submit "
+            "one spec per source)")
+    if spec.policy is not None:
+        _check_ported(spec.policy)
+
+
+def _policy_desc(pol: ExecutionPolicy) -> str:
+    """Short human tag for a degradation step record."""
+    tag = f"{pol.mode}/{pol.kernel.impl}"
+    if pol.kernel.fuse_frontier:
+        tag += "+fused"
+    if pol.mode == "distributed":
+        tag += f"/{pol.dist_flavor}"
+    return tag
+
+
+def degrade_policy(pol: ExecutionPolicy) -> Optional[ExecutionPolicy]:
+    """One rung down the graceful-degradation ladder, or None at the
+    bottom: a pallas/fused kernel → the ``ref`` kernel (same mode; same
+    values), then ``mode="distributed"`` → ``mode="sync"``."""
+    if pol.kernel is not None and pol.kernel.impl != "ref":
+        return pol.but(kernel=KernelSpec(impl="ref"))
+    if pol.mode == "distributed":
+        return pol.but(mode="sync", dist_flavor="sync", local_sweeps=1,
+                       query_axis=None)
+    return None
+
+
+class GraphProcessor:
+    """Prepare-once / query-many session over one graph.
+
+    Holds a plan cache of ``Prepared`` images keyed by ``PlanKey`` so
+    repeated and cross-algorithm queries share the compile-time pipeline
+    (clustering, permutation, BSR build, device upload), plus derived
+    graph variants (unit-weight, undirected) built at most once.  Plans
+    live on ``device`` (``cuda`` unless named).
+    """
+
+    def __init__(self, g: Graph, b: int = 32,
+                 num_clusters: Optional[int] = None, clustered: bool = True,
+                 seed: int = 0, policy: Optional[ExecutionPolicy] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.g = g
+        self.b = b
+        self.num_clusters = num_clusters
+        self.clustered = clustered
+        self.seed = seed
+        self.policy = policy or ExecutionPolicy()
+        self._plans: Dict[PlanKey, Prepared] = {}
+        self._variants: Dict[str, Graph] = {"base": g}
+        self._prepare_calls = 0
+
+    # -- compile-time pipeline (cached) ---------------------------------
+
+    def _variant(self, name: str) -> Graph:
+        if name not in self._variants:
+            g = self.g
+            if name == "unit":
+                self._variants[name] = Graph(
+                    n=g.n, indptr=g.indptr, indices=g.indices,
+                    weights=np.ones(g.nnz, dtype=np.float32))
+            elif name == "undirected":
+                self._variants[name] = g.to_undirected()
+            elif name == "unit_undirected":
+                und = self._variant("undirected")
+                self._variants[name] = Graph(
+                    n=und.n, indptr=und.indptr, indices=und.indices,
+                    weights=np.ones(und.nnz, dtype=np.float32))
+            else:
+                raise ValueError(f"unknown graph variant {name!r}")
+        return self._variants[name]
+
+    def plan_key(self, semiring: str, variant: str = "base",
+                 pull: bool = True, normalize: Optional[str] = None
+                 ) -> PlanKey:
+        return PlanKey(semiring, variant, pull, normalize, self.b,
+                       self.num_clusters, self.clustered, self.seed)
+
+    def prepare(self, semiring: str, variant: str = "base",
+                pull: bool = True, normalize: Optional[str] = None
+                ) -> Prepared:
+        """Fetch (or build and cache) the Prepared image for a plan."""
+        key = self.plan_key(semiring, variant, pull, normalize)
+        p = self._plans.get(key)
+        if p is None:
+            self._prepare_calls += 1
+            p = eng.prepare(self._variant(variant), semiring, b=self.b,
+                            num_clusters=self.num_clusters, pull=pull,
+                            clustered=self.clustered, normalize=normalize,
+                            seed=self.seed, device=self.device)
+            self._plans[key] = p
+        return p
+
+    def cache_info(self) -> dict:
+        return {"plans": len(self._plans),
+                "prepare_calls": self._prepare_calls,
+                "keys": list(self._plans)}
+
+    # -- unified run entry point ----------------------------------------
+
+    def resolve_policy(self, spec: QuerySpec) -> ExecutionPolicy:
+        """The effective policy for a spec: explicit policy (or session
+        default merged with the algorithm's registered defaults), then
+        ``params`` overrides translated through the algorithm's
+        ``param_map``.  Refuses what is not ported yet."""
+        a = get_algorithm(spec.algo)
+        pol = spec.policy or self.policy.but(**dict(a.default_policy))
+        if spec.params:
+            pm = dict(a.param_map)
+            pol = pol.but(**{pm.get(k, k): v
+                             for k, v in dict(spec.params).items()})
+        _check_ported(pol)
+        return pol
+
+    def run(self, spec: QuerySpec) -> Result:
+        """Execute one QuerySpec.  All algorithm methods route here.
+
+        Run-time engine failures walk the graceful-degradation ladder
+        (see :func:`degrade_policy`) while ``policy.degrade`` is set;
+        ValueError/TypeError/KeyError/IndexError always propagate.
+        """
+        validate_spec(spec)
+        pol = self.resolve_policy(spec)
+        steps: list = []
+        while True:
+            try:
+                res = self._execute(spec, pol)
+            except (ValueError, TypeError, KeyError, IndexError):
+                raise
+            except Exception as e:
+                nxt = degrade_policy(pol) if pol.degrade else None
+                if nxt is None:
+                    raise
+                steps.append({"from": _policy_desc(pol),
+                              "to": _policy_desc(nxt),
+                              "error": f"{type(e).__name__}: {e}"})
+                pol = nxt
+                continue
+            if steps:
+                res.extra["degraded"] = steps
+            return res
+
+    def _execute(self, spec: QuerySpec, pol: ExecutionPolicy) -> Result:
+        """One engine attempt at (spec, pol)."""
+        p, x0f, pad, apply_kind, post = self._relaxation_setup(spec, pol)
+        if spec.batched:
+            return self._run_batched(spec, pol, p, x0f, pad, apply_kind,
+                                     post)
+        src = spec.sources[0] if spec.sources else None
+        x0 = p.to_blocks(x0f(src), pad)
+        x, stats = self._dispatch(pol, p, x0, apply_kind, src)
+        values = post(p.from_blocks(x))
+        extra = dict(algo=spec.algo,
+                     **({"src": src} if src is not None else {}))
+        return Result(values, stats, p, extra, policy=pol, graph=self.g)
+
+    def _relaxation_setup(self, spec: QuerySpec, pol: ExecutionPolicy):
+        """Returns (Prepared, x0_builder(src), pad, apply_kind, post) —
+        all read off the algorithm's registered ``AlgorithmSpec``."""
+        a = get_algorithm(spec.algo)
+        p = self.prepare(a.semiring, variant=a.variant, pull=a.pull,
+                         normalize=a.normalize)
+        pad = float(a.ring.zero) if a.pad is None else a.pad
+        post = a.post if a.post is not None else (lambda v: v)
+        return p, (lambda src: a.init(p, src, pol)), pad, a.update, post
+
+    def _frontier(self, p: Prepared, src: Optional[int]) -> torch.Tensor:
+        """Initial changed-set: just the source's row-block when there is
+        a point source, else everything (built on the host)."""
+        ch = np.zeros(p.r_pad, dtype=bool)
+        if src is None:
+            ch[:] = True
+        else:
+            ch[int(p.perm[src]) // p.b] = True
+        return torch.from_numpy(ch).to(p.device)
+
+    def _dispatch(self, pol: ExecutionPolicy, p: Prepared, x0,
+                  apply_kind: str, src: Optional[int]):
+        kern = pol.kernel
+        kw = dict(apply_kind=apply_kind, damping=pol.damping, tol=pol.tol,
+                  max_sweeps=pol.max_sweeps, kernel=kern)
+        if pol.mode == "sync":
+            ch0 = self._frontier(p, src) if kern.fuse_frontier else None
+            return eng.run_sync(p, x0, changed0=ch0, **kw)
+        return eng.run_async(p, x0, changed0=self._frontier(p, src), **kw)
+
+    def _run_batched(self, spec: QuerySpec, pol: ExecutionPolicy,
+                     p: Prepared, x0f, pad, apply_kind, post) -> Result:
+        kern = pol.kernel
+        sources = list(spec.sources)
+        if not sources:
+            raise ValueError("batched query needs at least one source")
+        x0 = torch.stack([p.to_blocks(x0f(s), pad) for s in sources])
+        kw = dict(apply_kind=apply_kind, damping=pol.damping, tol=pol.tol,
+                  max_sweeps=pol.max_sweeps, kernel=kern)
+        if pol.mode == "async":
+            ch0 = torch.stack([self._frontier(p, s) for s in sources])
+            x, stats = eng.run_async_batched(p, x0, changed0=ch0, **kw)
+        else:
+            ch0 = (torch.stack([self._frontier(p, s) for s in sources])
+                   if kern.fuse_frontier else None)
+            x, stats = eng.run_sync_batched(p, x0, changed0=ch0, **kw)
+        values = np.stack([post(p.from_blocks(x[q]))
+                           for q in range(len(sources))])
+        extra = {"algo": spec.algo, "sources": sources}
+        return Result(values, stats, p, extra, policy=pol, graph=self.g)
+
+    # -- the algorithm catalog (registry-backed convenience methods) -----
+
+    def _spec(self, algo: str, sources, policy, **params) -> QuerySpec:
+        batched = sources is not None and not np.isscalar(sources)
+        srcs = (tuple(int(s) for s in sources) if batched
+                else ((int(sources),) if sources is not None else ()))
+        params = {k: v for k, v in params.items() if v is not None}
+        if params:
+            base = policy or self.policy.but(
+                **dict(get_algorithm(algo).default_policy))
+            policy = base.but(**params)
+        return QuerySpec(algo=algo, sources=srcs, batched=batched,
+                         policy=policy)
+
+    def pagerank(self, damping: Optional[float] = None,
+                 tol: Optional[float] = None,
+                 max_sweeps: Optional[int] = None,
+                 policy: Optional[ExecutionPolicy] = None) -> Result:
+        """Convergence kwargs override the (given or session) policy;
+        defaults are damping=0.85, tol=1e-8, max_sweeps=500."""
+        return self.run(self._spec("pagerank", None, policy,
+                                   damping=damping, tol=tol,
+                                   max_sweeps=max_sweeps))
+
+    def pagerank_delta(self, damping: Optional[float] = None,
+                       tol: Optional[float] = None,
+                       max_sweeps: Optional[int] = None,
+                       policy: Optional[ExecutionPolicy] = None) -> Result:
+        """Delta-accumulating PageRank: ranks only rise from the
+        (1-damping)/n floor, so the update is async-eligible."""
+        return self.run(self._spec("pagerank_delta", None, policy,
+                                   damping=damping, tol=tol,
+                                   max_sweeps=max_sweeps))
+
+    def sssp(self, sources: Union[int, Sequence[int]],
+             policy: Optional[ExecutionPolicy] = None) -> Result:
+        """Single-source (int) or batched multi-source (sequence)."""
+        return self.run(self._spec("sssp", sources, policy))
+
+    def bfs(self, sources: Union[int, Sequence[int]],
+            policy: Optional[ExecutionPolicy] = None) -> Result:
+        res = self.run(self._spec("bfs", sources, policy))
+        res.extra["levels"] = res.values
+        return res
+
+    def connected_components(
+            self, policy: Optional[ExecutionPolicy] = None) -> Result:
+        return self.run(self._spec("cc", None, policy))
+
+    def kcore(self, k: float,
+              policy: Optional[ExecutionPolicy] = None) -> Result:
+        """k-core membership: values[v] is 1.0 iff v survives peeling."""
+        return self.run(QuerySpec(algo="kcore", policy=policy,
+                                  params={"k": float(k)}))
+
+    def reachability(self, src: int,
+                     policy: Optional[ExecutionPolicy] = None) -> Result:
+        return self.run(self._spec("reachability", src, policy))

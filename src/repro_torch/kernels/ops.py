@@ -1,0 +1,95 @@
+"""Kernel entry points behind one ``select_kernel`` registry.
+
+Engines resolve a callable once per run via ``select_kernel(op, spec)``,
+where ``spec`` is a ``KernelSpec`` (kernels/spec.py).  The callable then
+decides by the device of the tensors it is given:
+
+  * CUDA tensors: ``impl="ref"`` and unfused ``impl="pallas"`` launch the
+    hand-written CUDA SpMV (``bsr_spmv.bsr_spmv``; the engine applies the
+    update rule in torch); fused ``impl="pallas"`` launches
+    ``bsr_spmv.bsr_spmv_fused``.
+  * CPU tensors: both impls run the plain torch versions in
+    ``kernels/ref.py`` (the wrappers themselves make that choice).
+  * A registered custom semiring runs the plain versions on every device:
+    the kernels know only the four built-in rings.
+
+Nothing else reaches the plain versions on the card, and a failed build
+or launch raises: there is no fallback.
+
+Registered call signatures (one contract per (op, fused) pair):
+
+  ("bsr_spmv", fused=False)  fn(vals, cols, nnz, x, semiring=...)
+                             -> y (Q, R, B)
+  ("bsr_spmv", fused=True)   fn(vals, cols, nnz, x, xg, valid, act_rows,
+                                damping, tol, inv_n, semiring=...,
+                                apply_kind=...)
+                             -> (x_new, changed, improved_any)
+"""
+
+from __future__ import annotations
+
+from . import bsr_spmv as _cuda
+from . import ref as _ref
+from .. import resilience
+from ..core.semiring import BUILTIN
+from .spec import KernelSpec, as_kernel_spec
+
+_KERNELS = {}
+
+
+def register_kernel(op: str, impl: str, fused: bool = False):
+    def deco(builder):
+        _KERNELS[(op, impl, fused)] = builder
+        return builder
+    return deco
+
+
+def select_kernel(op: str, spec=None):
+    """Resolve one kernel callable for (op, spec).
+
+    ``spec`` may be a ``KernelSpec``, a bare impl string, or None
+    (defaults).  Raises ``KeyError`` naming the available registrations
+    when the combination has no kernel.  Fault site ``kernel.select``
+    fires here (ctx: op/impl/fused), once per engine run.
+    """
+    spec = as_kernel_spec(spec)
+    resilience.fire("kernel.select", op=op, impl=spec.impl,
+                    fused=spec.fuse_frontier)
+    key = (op, spec.impl, spec.fuse_frontier)
+    try:
+        builder = _KERNELS[key]
+    except KeyError:
+        raise KeyError(
+            f"no kernel registered for op={op!r} impl={spec.impl!r} "
+            f"fused={spec.fuse_frontier}; have {sorted(_KERNELS)}"
+        ) from None
+    return builder(spec)
+
+
+def _spmv(block_vals, block_cols, block_nnz, x, semiring="plus_times"):
+    if semiring not in BUILTIN:
+        return _ref.bsr_spmv_ref(block_vals, block_cols, block_nnz, x,
+                                 semiring)
+    return _cuda.bsr_spmv(block_vals, block_cols, block_nnz, x, semiring)
+
+
+def _spmv_fused(block_vals, block_cols, block_nnz, x, xg, valid, act_rows,
+                damping, tol, inv_n, semiring="min_plus",
+                apply_kind="relax"):
+    fn = (_cuda.bsr_spmv_fused if semiring in BUILTIN
+          else _ref.bsr_spmv_fused_ref)
+    return fn(block_vals, block_cols, block_nnz, x, xg, valid, act_rows,
+              damping, tol, inv_n, semiring, apply_kind)
+
+
+@register_kernel("bsr_spmv", "ref")
+@register_kernel("bsr_spmv", "pallas")
+def _build_bsr_spmv(spec: KernelSpec):
+    del spec  # the CUDA kernel has no tiling knobs yet
+    return _spmv
+
+
+@register_kernel("bsr_spmv", "pallas", fused=True)
+def _build_bsr_spmv_fused(spec: KernelSpec):
+    del spec
+    return _spmv_fused
