@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port of the graph engine on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port on one NVIDIA GPU: the graph engine's main
+path and LM serving (granite-3-2b at full width), every hand-written
+kernel against its plain version.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # everything (about 5 minutes)
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      TF32 off for matmuls and cuDNN;
-  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-     sm_90a) and print the build time and ptxas's register report;
+  2. build the CUDA libraries from ``src/repro_torch/kernels/csrc`` (one
+     nvcc per source, started together; sm_90a) and print the build time
+     and ptxas's register report;
   3. each kernel against its plain torch version on the card: the CA
      stand-in at scale 0.02 for the 4 semirings × B ∈ {16, 32}, the fused
      kernel over 5 update rules × {empty, sparse, dense} frontiers at
@@ -22,10 +25,32 @@ Phases, in order; any mismatch raises and the script exits non-zero:
   5. times at the full-scale CA plans: each kernel (CUDA events, median),
      its plain version, the bound (bytes / 3.35 TB/s) and, for
      plus_times, ``torch.sparse_csr_tensor`` @ x as a yardstick;
-  6. a JSON line per kernel; the last line is
+     then the graph plans are freed;
+  6. flash attention against its plain version (mha_ref; mha_chunked for
+     the long case): the granite prefill shape (B 4, H 32, Hkv 8, S 1024,
+     D 64, causal) in bf16 and f32, ragged non-causal S = 100, windows,
+     D = 128, and B 1 x H 32 x S 16384 causal; each case within an
+     elementwise and a relative-L2 limit, and a planted fault (one key
+     tile dropped) must break both;
+  7. LM serving, the main path of the slice: granite-3-2b (40 layers,
+     d_model 2048, 2.53 B parameters, random weights from seed 0, bf16)
+     through ``generate`` (4 prompts x 1024 tokens, 32 new) and
+     ``ServeLoop`` (4 slots, 8 such requests); the first wave's tokens
+     equal the static batch's, and ``launch_counts["flash_attention"]``
+     is 40 x the prefills; one wave's prefill logits against the same
+     model with mha_ref, beside the distance a dropped key tile in every
+     layer gives; prefill tokens/s, time to first token, decode
+     ms/step and tokens/s, the device idle share over decode steps;
+  8. the kernel's time at the granite prefill shape, its bound
+     (operations at the bf16 tensor-core peak), the plain version's time
+     and ``scaled_dot_product_attention``'s as the yardstick;
+  9. a JSON line with every kernel; the last line is
      ``{"ok": true, "device": {...}}``.
 
-Each earlier JSON line carries the card's name and power limit.
+Each earlier JSON line carries the card's name and power limit.  To
+iterate on one part, call the phases from Python, e.g.
+
+    python3 -c 'import chip_smoke as c; c.setup(); c.build_all(); c.lm_phases()'
 """
 
 from __future__ import annotations
@@ -347,10 +372,24 @@ def _pagerank_oracle(g):
     return _PR_ORACLE[g.fingerprint()]
 
 
+def device_busy(events):
+    """(busy seconds, the five longest) over the profile's device events:
+    kernels, copies and sets on the card.  The CPU ops that launched them
+    carry the same device time again, so they are left out, as torch's
+    own table does."""
+    from torch.autograd import DeviceType
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    return (sum(e.self_device_time_total for e in dev) / 1e6,
+            [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+             for e in top])
+
+
 def device_share(name, fn):
-    """Device busy time over one query under torch.profiler: the sum of
-    every device op's self time, against the query's wall (the profiler
-    adds host overhead, so the idle share is an upper bound)."""
+    """Device busy time over one query under torch.profiler, against the
+    query's wall (the profiler adds host overhead, so the idle share is an
+    upper bound)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -360,14 +399,11 @@ def device_share(name, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+    busy, top = device_busy(prof.key_averages())
     emit(phase="profile", query=name, wall_s=wall,
          device_busy_s=busy if busy > 0 else "not measured",
          idle_share=1 - busy / wall if busy > 0 else "not measured",
-         top=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
-              for e in top])
+         top=top)
 
 
 def check_oracle(algo, g, values, src=None, tol=None):
@@ -524,34 +560,435 @@ def main_path(errs, gen):
     return proc, g, launches
 
 
-def main() -> int:
+# -- LM serving: flash attention and granite-3-2b ---------------------------
+
+LM_ARCH = "granite-3-2b"
+LM_REDUCED = False          # full width; a CPU rehearsal sets True
+PROMPTS, PROMPT_LEN, NEW_TOKENS = 4, 1024, 32
+SERVE_REQUESTS, SERVE_SLOTS = 8, 4
+LONG_S = 16384
+# kernel vs plain, elementwise |Δ| <= tol + tol·|plain|, as
+# tests/test_kernels.py:59.  In bf16 that alone is loose: a typical output
+# is 0.01-0.05, and the kernel's f32 scores and p against mha_ref's bf16
+# ones move the outputs of rows with few keys by up to about 1e-2 where
+# they nearly cancel.  So each case also holds ‖Δ‖₂/‖plain‖₂ under
+# ATTN_REL_L2: the bf16 output's own rounding gives about 4e-3, a
+# dropped 64-key tile about 0.3 (checked below, on the card, every run).
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+ATTN_REL_L2 = {"bfloat16": 1e-2, "float32": 1e-5}
+# prefill logits, kernel vs mha_ref: ‖Δ‖₂/‖ref‖₂ over one wave.  In f32
+# (the same weights upcast) only the summation order differs: that check
+# is the gate.  In bf16 the two round p differently (f32 vs bf16) in each
+# of 40 layers, and the difference compounds (2.1e-2 measured on the
+# H100); printed beside it are the bf16 model's own distance from f32 and
+# the distance of a dropped key tile in every layer.
+LOGIT_REL_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+# a flipped greedy token is accepted when its logit and the static path's
+# token's logit differ by at most this (two bf16 ulps at |logit| < 8)
+FLIP_TOL = 0.125
+BF16_PEAK_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores, data sheet
+DECODE_PROFILE_STEPS = 8
+
+
+def attention_pairs(b, h, s, causal, window) -> int:
+    """(query, key) pairs the mask keeps, over every (batch, head)."""
+    import numpy as np
+    q = np.arange(s, dtype=np.int64)
+    hi = q + 1 if causal else np.full(s, s)       # keys < hi
+    lo = np.zeros(s, dtype=np.int64) if window is None \
+        else np.maximum(q - window + 1, 0)        # keys >= lo
+    return b * h * int((hi - lo).sum())
+
+
+def attention_bound(b, h, hkv, s, d, dtype, causal, window):
+    """Least time for one call: operations (4·D per kept pair) at the bf16
+    tensor-core peak, or q, k, v read and o written once at 3.35 TB/s,
+    whichever is larger."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    from repro_torch.kernels import bsr_spmv as tk  # the port, not JAX
+    ops_ = 4 * d * attention_pairs(b, h, s, causal, window)
+    elem = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * b * h * s * d + 2 * b * hkv * s * d) * elem
+    t_ops, t_bytes = ops_ / BF16_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", ops_, nbytes)
+
+
+def _qkv(gen, b, h, hkv, s, d, dtype):
+    import torch
+    return [torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+            for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def attention_vs_plain(gen):
+    """The flash kernel against its plain version at the serving shapes;
+    returns the largest |kernel − plain|."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref as tref
+    bf16, f32 = torch.bfloat16, torch.float32
+    s = PROMPT_LEN
+    cases = [  # name, B, H, Hkv, S, D, dtype, causal, window
+        ("granite prefill bf16", PROMPTS, 32, 8, s, 64, bf16, True, None),
+        ("granite prefill f32", PROMPTS, 32, 8, s, 64, f32, True, None),
+        ("ragged S=100 full bf16", 2, 32, 8, 100, 64, bf16, False, None),
+        ("ragged S=100 full f32", 2, 32, 8, 100, 64, f32, False, None),
+        ("window 256 causal bf16", 2, 32, 8, s, 64, bf16, True, 256),
+        ("window 200 full f32", 1, 8, 2, 1000, 64, f32, False, 200),
+        ("D=128 chatglm3 bf16", 1, 32, 2, s, 128, bf16, True, None),
+        ("D=128 ragged f32", 1, 8, 2, 777, 128, f32, True, None),
+    ]
+    worst = 0.0
+    for name, b, h, hkv, sl, d, dt, causal, window in cases:
+        q, k, v = _qkv(gen, b, h, hkv, sl, d, dt)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = tref.attention_ref(q, k, v, causal=causal, window=window)
+        worst = max(worst, _attn_check(got, want, dt, name))
+        if name == "granite prefill bf16":  # the limits catch a fault
+            bad = dropped_tile_attention(q, k, v, causal, window)
+            try:
+                _attn_check(bad, want, dt, "planted fault: key tile 1 "
+                            "dropped")
+            except AssertionError:
+                pass
+            else:
+                raise AssertionError("a dropped key tile passed the "
+                                     "attention limits")
+    # the long case against mha_chunked, kv heads repeated by hand
+    q, k, v = _qkv(gen, 1, 32, 8, LONG_S, 64, bf16)
+    got = fa.flash_attention(q, k, v)
+    want = tref.mha_chunked(q, k.repeat_interleave(4, 1),
+                            v.repeat_interleave(4, 1))
+    worst = max(worst, _attn_check(got, want, bf16, f"long S={LONG_S}"))
+    long_ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps=3)
+    bound = attention_bound(1, 32, 8, LONG_S, 64, bf16, True, None)
+    emit(phase="attention_long", s=LONG_S, ms=long_ms, bound_ms=bound[0],
+         bound_by=bound[1])
+    emit(phase="attention_vs_plain", ok=True, cases=len(cases) + 1,
+         max_abs_err=worst)
+    return worst
+
+
+def _attn_check(got, want, dtype, what) -> float:
+    import torch
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"flash_attention {what}: {got.shape} "
+                             f"{got.dtype} vs {want.shape} {want.dtype}")
+    g, w = got.float(), want.float()
+    key = str(dtype).split(".")[-1]
+    tol, rel_tol = ATTN_TOL[key], ATTN_REL_L2[key]
+    diff = (g - w).abs()
+    err = float(diff.max())
+    rel = float((g - w).norm() / w.norm())
+    emit(phase="attention_case", case=what, max_abs_err=err, tol=tol,
+         rel_l2=rel, rel_l2_tol=rel_tol,
+         worst_excess=float((diff - tol * w.abs()).max()))
+    if not bool(torch.isfinite(g).all()) or rel > rel_tol or \
+            not bool((diff <= tol + tol * w.abs()).all()):
+        raise AssertionError(f"flash_attention != plain ({what}): max |Δ| "
+                             f"{err} (tolerance {tol}), relative L2 {rel} "
+                             f"(limit {rel_tol})")
+    return err
+
+
+def dropped_tile_attention(q, k, v, causal=True, window=None, scale=None):
+    """A planted fault: the plain version with key tile 1 (keys 64-127)
+    hidden from every query past it, as a kernel that skipped one tile
+    would compute."""
+    import torch
+    from repro_torch.kernels import ref
+    h, hkv, s, d = q.shape[1], k.shape[1], q.shape[2], q.shape[3]
+    k, v = (t.repeat_interleave(h // hkv, 1) for t in (k, v))
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None]
+    keep = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kp <= qp
+    if window is not None:
+        keep &= kp > qp - window
+    keep &= ~((kp >= 64) & (kp < 128) & (qp >= 128))
+    scale = scale if scale is not None else d ** -0.5
+    p = torch.softmax((q @ k.transpose(-1, -2)).float().mul(scale)
+                      .masked_fill(~keep, -torch.inf), -1)
+    return (p.to(v.dtype) @ v).to(q.dtype)
+
+
+class attention_swapped:
+    """Within the block the model's attention (``ops.attention``) is
+    ``fn``: the plain version for the logit check, or a planted fault;
+    never a path of the port."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.saved, ops.attention = ops.attention, self.fn
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.attention = self.saved
+
+
+def check_tokens(cfg, model, prompts, static, reqs):
+    """Requests that shared a wave with the static batch must give its
+    tokens; a flip passes only where the two candidates' logits tie
+    within FLIP_TOL (teacher-forced forward of the common prefix)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    flips = []
+    for i, r in enumerate(reqs[:PROMPTS]):
+        want = static[i, PROMPT_LEN:].tolist()
+        if len(r.generated) != NEW_TOKENS:
+            raise AssertionError(f"request {i}: {len(r.generated)} tokens")
+        if r.generated == want:
+            continue
+        t = next(j for j, (a, b) in enumerate(zip(r.generated, want))
+                 if a != b)
+        prefix = np.concatenate([prompts[i], want[:t]])[None]
+        logits = lm.forward(cfg, model, torch.as_tensor(
+            prefix, device=DEVICE))[0, -1].float()
+        gap = float((logits[want[t]] - logits[r.generated[t]]).abs())
+        flips.append({"request": i, "at": t, "gap": gap})
+        if gap > FLIP_TOL:
+            raise AssertionError(f"request {i} flips at token {t} with a "
+                                 f"logit gap of {gap} > {FLIP_TOL}")
+    for r in reqs[PROMPTS:]:
+        if not r.done or len(r.generated) != NEW_TOKENS or \
+                min(r.generated) < 0 or max(r.generated) >= cfg.vocab_size:
+            raise AssertionError(f"request {r.rid} is malformed")
+    return flips
+
+
+def check_prefill_logits(cfg, model, toks):
+    """One wave's prefill logits with the kernel against the same model
+    with mha_ref called explicitly: the served bf16 model, and its
+    weights upcast to f32.  Beside each: the plain path on the first two
+    prompts alone (another batch size, so other matmul kernels), and a
+    dropped key tile in every layer; then the bf16 model's own distance
+    from its f32 upcast."""
+    import copy
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.models import lm
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    m32 = copy.deepcopy(model).float()
+    plain = {}
+    for dt, m in (("bfloat16", model), ("float32", m32)):
+        got, _ = lm.prefill(cfg, m, toks, cache_len=PROMPT_LEN)
+        with attention_swapped(ref.attention_ref):
+            want, _ = lm.prefill(cfg, m, toks, cache_len=PROMPT_LEN)
+            half, _ = lm.prefill(cfg, m, toks[:2], cache_len=PROMPT_LEN)
+        with attention_swapped(dropped_tile_attention):
+            bad, _ = lm.prefill(cfg, m, toks, cache_len=PROMPT_LEN)
+        plain[dt] = want
+        err = rel(got, want)
+        finite = bool(torch.isfinite(got).all())
+        emit(phase="lm_logits", dtype=dt, rel_l2=err,
+             tol=LOGIT_REL_TOL[dt], batch2_rel_l2=rel(half, want[:2]),
+             dropped_tile_rel_l2=rel(bad, want),
+             max_abs=float((got.float() - want.float()).abs().max()),
+             max_ref=float(want.float().abs().max()),
+             top1_agree=float((got.argmax(-1) == want.argmax(-1))
+                              .float().mean()), finite=finite)
+        if not finite or err > LOGIT_REL_TOL[dt]:
+            raise AssertionError(f"{dt} prefill logits off mha_ref: {err}")
+    emit(phase="lm_logits_bf16_vs_f32",
+         rel_l2=rel(plain["bfloat16"], plain["float32"]))
+    del m32
+    torch.cuda.empty_cache()
+
+
+def decode_idle_share(cfg, model, cache, tok, pos):
+    """Device busy time over a few decode steps under torch.profiler,
+    against the steps' wall (the profiler adds host time, so the idle
+    share is an upper bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(DECODE_PROFILE_STEPS):
+            logits, cache = lm.decode_step(cfg, model, cache, tok, pos + i)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy, top = device_busy(events)
+    launches = sum(e.count for e in events if "LaunchKernel" in e.key)
+    rec = dict(steps=DECODE_PROFILE_STEPS, wall_s=wall,
+               kernel_launches_per_step=launches / DECODE_PROFILE_STEPS,
+               device_busy_s=busy if busy > 0 else "not measured",
+               idle_share=1 - busy / wall if busy > 0 else "not measured",
+               top=top)
+    emit(phase="decode_profile", **rec)
+    return rec
+
+
+def lm_path(gen):
+    """Serve granite-3-2b at full width: static generate and ServeLoop
+    with every prefill through the kernel, then the serving metrics."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.serve import engine as serve
+
+    cfg = get_config(LM_ARCH)
+    if LM_REDUCED:
+        cfg = cfg.reduced()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                    device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    emit(phase="lm_init", arch=cfg.name, params=n_params,
+         weight_gb=sum(p.numel() * p.element_size()
+                       for p in model.parameters()) / 1e9,
+         seconds=time.perf_counter() - t0)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(2, cfg.vocab_size,
+                           (SERVE_REQUESTS, PROMPT_LEN)).astype(np.int32)
+    cache_len = PROMPT_LEN + NEW_TOKENS
+
+    fa.reset_launch_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    static = serve.generate(cfg, model, prompts[:PROMPTS], NEW_TOKENS)
+    static_wall = time.perf_counter() - t0
+    sl = serve.ServeLoop(cfg, model, num_slots=SERVE_SLOTS,
+                         cache_len=cache_len)
+    reqs = [serve.Request(rid=i, prompt=prompts[i], max_new=NEW_TOKENS)
+            for i in range(SERVE_REQUESTS)]
+    for r in reqs:
+        sl.submit(r)
+    t0 = time.perf_counter()
+    steps = sl.run()
+    torch.cuda.synchronize()
+    loop_wall = time.perf_counter() - t0
+    launches = dict(fa.launch_counts)  # the main path ends here
+    prefills = 1 + -(-SERVE_REQUESTS // SERVE_SLOTS)
+    emit(phase="lm_main_path", static_wall_s=static_wall,
+         serve_loop_wall_s=loop_wall, serve_loop_steps=steps,
+         prefills=prefills, **launches)
+    if launches["flash_attention"] != cfg.num_layers * prefills:
+        raise AssertionError(
+            f"flash_attention launched {launches['flash_attention']} "
+            f"times, expected {cfg.num_layers} x {prefills} prefills")
+    if static.shape != (PROMPTS, PROMPT_LEN + NEW_TOKENS) or \
+            not (static[:, :PROMPT_LEN] == prompts[:PROMPTS]).all():
+        raise AssertionError(f"generate returned {static.shape}")
+    flips = check_tokens(cfg, model, prompts, static, reqs)
+    emit(phase="lm_tokens", ok=True, flips=len(flips), flip_detail=flips,
+         requests=len(reqs))
+
+    toks = torch.as_tensor(prompts[:PROMPTS], dtype=torch.long,
+                           device=DEVICE)
+    check_prefill_logits(cfg, model, toks)
+
+    # serving metrics (host clock, synchronised).  TTFT: the prefill of
+    # the wave and its first tokens on the host, which every request of
+    # the wave waits for.
+    prefill_s, ttft_s = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(cfg, model, toks, cache_len=cache_len)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = logits.argmax(-1)
+        tok.cpu()
+        prefill_s.append(t1 - t0)
+        ttft_s.append(time.perf_counter() - t0)
+    steps_t = []
+    pos = PROMPT_LEN
+    for i in range(NEW_TOKENS - 1 - DECODE_PROFILE_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = lm.decode_step(cfg, model, cache, tok, pos + i)
+        tok = logits.argmax(-1)
+        tok.cpu()  # the host reads every token, as generate does
+        steps_t.append(time.perf_counter() - t0)
+    step_ms = statistics.median(steps_t) * 1e3
+    prof = decode_idle_share(cfg, model, cache, tok, pos + len(steps_t))
+    rec = dict(
+        prefill_tokens_per_s=PROMPTS * PROMPT_LEN / statistics.median(
+            prefill_s),
+        prefill_s=statistics.median(prefill_s),
+        ttft_s=statistics.median(ttft_s),
+        decode_ms_per_step=step_ms,
+        decode_tokens_per_s=PROMPTS / step_ms * 1e3,
+        decode_idle_share=prof["idle_share"], batch=PROMPTS,
+        prompt_len=PROMPT_LEN, peak_gb=torch.cuda.max_memory_allocated()
+        / 1e9)
+    emit(phase="lm_serving", **rec)
+    return launches, rec
+
+
+def time_attention(gen, errs_max, launches):
+    """The kernel at the granite prefill shape: its time, its bound, the
+    plain version's time and SDPA's (the yardstick, never called by the
+    port)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref as tref
+    b, h, hkv, s, d = PROMPTS, 32, 8, PROMPT_LEN, 64
+    q, k, v = _qkv(gen, b, h, hkv, s, d, torch.bfloat16)
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps=20)
+    plain = cuda_ms(lambda: tref.attention_ref(q, k, v), reps=5)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps=20)
+    sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                          enable_gqa=True)
+    torch.cuda.synchronize()
+    sdpa_err = float((sdpa.float() - fa.flash_attention(q, k, v).float())
+                     .abs().max())
+    bound_ms, bound_by, n_ops, n_bytes = attention_bound(
+        b, h, hkv, s, d, torch.bfloat16, True, None)
+    emit(phase="time", kernel="flash_attention", shape=[b, h, hkv, s, d],
+         dtype="bfloat16", ms=ms, plain_ms=plain, library_ms=lib,
+         sdpa_max_abs_diff=sdpa_err, bound_ms=bound_ms, bound_by=bound_by,
+         flops=n_ops, bytes=n_bytes, tflops=n_ops / ms / 1e9)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:121",
+            "launches": launches["flash_attention"],
+            "max_abs_err": errs_max, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib}
+
+
+def build_all():
+    """Both libraries, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import bsr_spmv as tk
+    from repro_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        futs = {m.LIBRARY.name: ex.submit(m.build) for m in (tk, fa)}
+        libs = {name: f.result() for name, f in futs.items()}
+    emit(phase="build", seconds=time.perf_counter() - t0,
+         libraries=[p.name for p in libs.values()])
+    for p in libs.values():
+        print(p.with_suffix(".log").read_text(), flush=True)
+
+
+def graph_phases():
+    """Slice 1: the SpMV kernels against their plain versions, the graph
+    main path at full width, the SpMV times; returns the kernels line's
+    entries.  Frees the graph plans before returning."""
+    import gc
+    import torch
     from repro_torch.core import engine as E
     from repro_torch.core import graph as G
 
-    # 1. the card
-    smi = nvidia_smi()
-    name, limit = [s.strip() for s in smi.split(",", 1)]
-    CARD.update(name=name, power_limit=limit)
-    print(smi, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    emit(phase="env", torch=torch.__version__, cuda=torch.version.cuda,
-         python=sys.version.split()[0],
-         device=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count())
-
-    # 2. build
-    t0 = time.perf_counter()
-    lib = tk.build()
-    emit(phase="build", seconds=time.perf_counter() - t0, library=lib.name)
-    print(lib.with_suffix(".log").read_text(), flush=True)
-
-    # 3. kernel vs plain at the scale-0.02 CA plans
+    # kernel vs plain at the scale-0.02 CA plans
     gen = torch.Generator().manual_seed(0)
     errs = Errors()
     g02 = G.make_paper_graph("ca", scale=SMALL_SCALE, seed=0)
@@ -566,13 +1003,54 @@ def main() -> int:
                               gen)
     emit(phase="kernel_vs_plain", ok=True, max_abs_err=errs.max)
 
-    # 4. the main path
     proc, g, launches = main_path(errs, gen)
-
-    # 5. times
     kernels = time_kernels(proc, g, errs, launches)
+    del proc, g, p
+    gc.collect()
+    torch.cuda.empty_cache()  # 25.4 GB of plans, before the LM phases
+    emit(phase="graph_freed", device_gb=torch.cuda.memory_allocated() / 1e9)
+    return kernels
 
-    # 6. the kernels line, the card, and the result
+
+def lm_phases():
+    """Slice 2: flash attention against its plain version, granite-3-2b
+    served at full width, the kernel's times; returns its kernels line
+    entry."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    attn_err = attention_vs_plain(gen)
+    launches, _ = lm_path(gen)
+    return [time_attention(gen, attn_err, launches)]
+
+
+def setup():
+    """Phase 1: the card's name and power limit, versions, TF32 off."""
+    import torch
+    smi = nvidia_smi()
+    name, limit = [s.strip() for s in smi.split(",", 1)]
+    CARD.update(name=name, power_limit=limit)
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit(phase="env", torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0],
+         device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count())
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import repro_torch  # noqa: F401  (the port, not JAX; fails outside)
+    setup()
+    # 2. build; 3.-5. the graph engine; 6.-8. LM serving
+    build_all()
+    kernels = graph_phases()
+    kernels += lm_phases()
+
+    # 9. the card, the kernels line, and the result
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,20 @@
+"""Granite-3.0-2B — dense GQA transformer.
+[hf:ibm-granite/granite-3.0-2b-base; hf]"""
+
+from .base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="granite-3-2b",
+    family="dense",
+    num_layers=40,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=49155,
+    block_pattern=("attn",),
+    mlp_kind="swiglu",
+    rope_theta=10_000.0,
+    tie_embeddings=True,
+))

@@ -12,11 +12,11 @@ Device rule.  A wrapper given CPU tensors runs the plain torch version in
 ``kernels/ref.py``; given CUDA tensors it launches its kernel or raises.
 There is no fallback from a failed build or launch.
 
-Build.  ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false``
-compiles the source into ``build/kernels/libbsr_spmv-<hash>.so`` at the
-repository root, named by a hash of the source and the flags, the first
-time a kernel is launched.  It is loaded with ``ctypes``; the C functions
-take raw pointers and the current stream and return the CUDA error code.
+Build.  ``kernels/cuda_lib.py`` compiles the source with nvcc for sm_90a
+and ``-fmad=false`` (bit equality with the plain versions) into
+``build/kernels/libbsr_spmv-<hash>.so`` the first time a kernel is
+launched, and loads it with ``ctypes``; the C functions take raw pointers
+and the current stream and return the CUDA error code.
 
 Each wrapper adds one to ``launch_counts[name]`` where it launches its
 kernel, and nowhere else.
@@ -25,17 +25,12 @@ kernel, and nowhere else.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import tempfile
-import threading
 
 import torch
 
 from . import ref
+from .cuda_lib import BASE_FLAGS, CudaLibrary, expect, on_cpu
 
 SEMIRING_CODES = {"plus_times": 0, "min_plus": 1, "max_min": 2,
                   "min_select": 3}
@@ -44,15 +39,9 @@ RULE_CODES = {"relax": 0, "pagerank": 1, "pagerank_delta": 2, "kcore": 3,
 BLOCK_SIZES = (8, 16, 32)
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "bsr_spmv.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+NVCC_FLAGS = BASE_FLAGS + ("-fmad=false",)
 
 launch_counts = {"bsr_spmv": 0, "bsr_spmv_fused": 0}
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -60,94 +49,22 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME, /usr/local/cuda and "
-            "PATH); the CUDA SpMV kernels cannot be built")
-    return found
+def _bind(lib) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.bsr_spmv_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.bsr_spmv_launch.restype = i
+    lib.bsr_spmv_fused_launch.argtypes = [
+        p, p, p, p, p, p, p, f, f, f, p, p, p, i, i, i, i, i, i, i, p]
+    lib.bsr_spmv_fused_launch.restype = i
 
 
-def library_path() -> pathlib.Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libbsr_spmv-{h.hexdigest()[:16]}.so"
+LIBRARY = CudaLibrary("bsr_spmv", SOURCE, NVCC_FLAGS, _bind,
+                      "bsr_error_string")
 
 
 def build() -> pathlib.Path:
-    """Compile the kernels unless a library for this source and these
-    flags exists; returns its path.  nvcc's output, with ptxas's
-    register/spill report, is kept beside it as ``<library>.log``.
-    Raises with nvcc's output on failure."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return out
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.bsr_spmv_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                            p]
-            lib.bsr_spmv_launch.restype = i
-            lib.bsr_spmv_fused_launch.argtypes = [
-                p, p, p, p, p, p, p, f, f, f, p, p, p, i, i, i, i, i, i, i,
-                p]
-            lib.bsr_spmv_fused_launch.restype = i
-            lib.bsr_error_string.argtypes = [i]
-            lib.bsr_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
-
-
-def _check_rc(lib, rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(
-            f"{name} launch failed: {lib.bsr_error_string(rc).decode()}")
-
-
-def _on_cpu(*ts) -> bool:
-    """True when every tensor lies on the CPU; False when every one lies
-    on one CUDA device; raises on anything else."""
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    return False
-
-
-def _expect(t: torch.Tensor, name: str, dtype, shape) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    """Compile the SpMV library unless it exists; returns its path."""
+    return LIBRARY.build()
 
 
 def _check_plan(vals, cols, nnz, x, semiring):
@@ -161,10 +78,10 @@ def _check_plan(vals, cols, nnz, x, semiring):
                          f"not {semiring!r}")
     if x.dim() != 3 or x.shape[2] != b:
         raise ValueError(f"x must be (Q, C, {b}), got {tuple(x.shape)}")
-    _expect(vals, "vals", torch.float32, (r, k, b, b))
-    _expect(cols, "cols", torch.int32, (r, k))
-    _expect(nnz, "nnz", torch.int32, (r,))
-    _expect(x, "x", torch.float32, tuple(x.shape))
+    expect(vals, "vals", torch.float32, (r, k, b, b))
+    expect(cols, "cols", torch.int32, (r, k))
+    expect(nnz, "nnz", torch.int32, (r,))
+    expect(x, "x", torch.float32, tuple(x.shape))
     return r, k, b, x.shape[1], x.shape[0]
 
 
@@ -174,7 +91,7 @@ def bsr_spmv(block_vals, block_cols, block_nnz, x,
 
     x is (Q, C, B), or (C, B) for one query (then y is (R, B)).  On CUDA
     tensors the semiring must be one of the four built-ins."""
-    if _on_cpu(block_vals, block_cols, block_nnz, x):
+    if on_cpu(block_vals, block_cols, block_nnz, x):
         return ref.bsr_spmv_ref(block_vals, block_cols, block_nnz, x,
                                 semiring)
     single = x.dim() == 2
@@ -182,14 +99,14 @@ def bsr_spmv(block_vals, block_cols, block_nnz, x,
     r, k, b, c, q = _check_plan(block_vals, block_cols, block_nnz, xq,
                                 semiring)
     y = torch.empty((q, r, b), dtype=torch.float32, device=x.device)
-    lib = _library()
+    lib = LIBRARY.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bsr_spmv_launch(
             block_vals.data_ptr(), block_cols.data_ptr(),
             block_nnz.data_ptr(), xq.data_ptr(), y.data_ptr(), r, k, c, b,
             q, SEMIRING_CODES[semiring], stream)
-    _check_rc(lib, rc, "bsr_spmv")
+    LIBRARY.check(rc, "bsr_spmv")
     launch_counts["bsr_spmv"] += 1
     return y[0] if single else y
 
@@ -220,7 +137,7 @@ def bsr_spmv_fused(block_vals, block_cols, block_nnz, x, xg, valid,
       copied from xg bitwise; changed (Q, R) bool; conv (Q,) bool, the
       any-changed flag.  A 2-D x drops the query axis throughout.
     """
-    if _on_cpu(block_vals, block_cols, block_nnz, x, xg, valid, act_rows):
+    if on_cpu(block_vals, block_cols, block_nnz, x, xg, valid, act_rows):
         return ref.bsr_spmv_fused_ref(
             block_vals, block_cols, block_nnz, x, xg, valid, act_rows,
             damping, tol, inv_n, semiring, apply_kind)
@@ -232,13 +149,13 @@ def bsr_spmv_fused(block_vals, block_cols, block_nnz, x, xg, valid,
         x, xg, act_rows = x[None], xg[None], act_rows[None]
     r, k, b, c, q = _check_plan(block_vals, block_cols, block_nnz, x,
                                 semiring)
-    _expect(xg, "xg", torch.float32, (q, r, b))
-    _expect(valid, "valid", torch.bool, (r, b))
-    _expect(act_rows, "act_rows", torch.bool, (q, r))
+    expect(xg, "xg", torch.float32, (q, r, b))
+    expect(valid, "valid", torch.bool, (r, b))
+    expect(act_rows, "act_rows", torch.bool, (q, r))
     x_new = xg.clone()
     changed = torch.zeros((q, r), dtype=torch.bool, device=x.device)
     conv = torch.zeros((q,), dtype=torch.int32, device=x.device)
-    lib = _library()
+    lib = LIBRARY.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bsr_spmv_fused_launch(
@@ -248,7 +165,7 @@ def bsr_spmv_fused(block_vals, block_cols, block_nnz, x, xg, valid,
             _host_f32(tol), _host_f32(inv_n), x_new.data_ptr(),
             changed.data_ptr(), conv.data_ptr(), r, k, c, b, q,
             SEMIRING_CODES[semiring], RULE_CODES[apply_kind], stream)
-    _check_rc(lib, rc, "bsr_spmv_fused")
+    LIBRARY.check(rc, "bsr_spmv_fused")
     launch_counts["bsr_spmv_fused"] += 1
     conv = conv != 0
     if single:

@@ -12,6 +12,14 @@ decides by the device of the tensors it is given:
     ``kernels/ref.py`` (the wrappers themselves make that choice).
   * A registered custom semiring runs the plain versions on every device:
     the kernels know only the four built-in rings.
+  * Attention is not in the registry: ``attention()`` below keys on the
+    device alone.  On CUDA tensors it launches the hand-written flash
+    kernel (``flash_attention.flash_attention``) wherever the JAX
+    package's Pallas path would run it (S == Skv, S > 1, D_v == D); other
+    shapes, such as a decode step, run the plain ``ref.attention_ref``,
+    as the JAX package computes them in XLA outside any kernel.  The JAX
+    package's ``impl`` switch has no counterpart: its serving path passes
+    ``impl="ref"``, and the port runs the kernel there all the same.
 
 Nothing else reaches the plain versions on the card, and a failed build
 or launch raises: there is no fallback.
@@ -29,6 +37,7 @@ Registered call signatures (one contract per (op, fused) pair):
 from __future__ import annotations
 
 from . import bsr_spmv as _cuda
+from . import flash_attention as _flash
 from . import ref as _ref
 from .. import resilience
 from ..core.semiring import BUILTIN
@@ -93,3 +102,21 @@ def _build_bsr_spmv(spec: KernelSpec):
 def _build_bsr_spmv_fused(spec: KernelSpec):
     del spec
     return _spmv_fused
+
+
+def attention(q, k, v, causal=True, window=None, scale=None):
+    """Multi-head attention; q (B, H, S, D), k/v (B, Hkv, Skv, D), Hkv | H.
+
+    GQA: the kernel reads kv head h // (H / Hkv) in place, and the plain
+    path repeats the kv heads to H, as the JAX package's ``attention``
+    does before its kernel; both compute the same function.
+    """
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"kv heads {k.shape[1]} must divide heads "
+                         f"{q.shape[1]}")
+    s, d = q.shape[2], q.shape[3]
+    if s == k.shape[2] and s > 1 and v.shape[-1] == d:
+        return _flash.flash_attention(q, k, v, causal, window, scale)
+    return _ref.attention_ref(q, k, v, causal, window, scale)

@@ -2,14 +2,19 @@
 
 They are the ground truth the CUDA kernels are held against on the card
 (``chip_smoke.py``, the card-only tests), and the path the wrappers in
-``kernels/bsr_spmv.py`` take for tensors that lie on the CPU.  Registered
-custom semirings run here on every device.
+``kernels/bsr_spmv.py`` and ``kernels/flash_attention.py`` take for
+tensors that lie on the CPU.  Registered custom semirings run here on
+every device, and so do the attention shapes the flash kernel does not
+take (S != Skv, such as a decode step; D_v != D).
 
-Both take the query axis written out: ``x`` is (Q, C, B) — or (C, B) for
-one query, in which case the query axis is dropped from the results.
+The SpMV versions take the query axis written out: ``x`` is (Q, C, B) —
+or (C, B) for one query, in which case the query axis is dropped from the
+results.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -110,3 +115,83 @@ def bsr_spmv_fused_ref(block_vals, block_cols, block_nnz, x, xg, valid,
     if single:
         return x_out[0], changed[0], conv[0]
     return x_out, changed, conv
+
+
+# ---------------------------------------------------------------------------
+# attention — exact softmax attention, the plain version of flash_attention
+# ---------------------------------------------------------------------------
+
+CHUNKED_THRESHOLD = 16384
+
+
+def _mask(s: int, skv: int, offset: int, causal: bool,
+          window: Optional[int], device) -> torch.Tensor:
+    """(s, skv) True where query row i, at key position i + offset, may
+    see key j."""
+    qpos = torch.arange(offset, offset + s, device=device)[:, None]
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((s, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _attend(q, k, v, mask, scale):
+    # rounding points of the JAX package's reference: scores in the input
+    # dtype, then f32; softmax in f32; p in v's dtype for the PV product
+    logits = torch.einsum("bhsd,bhtd->bhst", q, k).float() * scale
+    logits = logits.masked_fill(~mask, -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0).to(v.dtype)  # fully-masked rows
+    return torch.einsum("bhst,bhtd->bhsd", p, v).to(q.dtype)
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool = True, window: Optional[int] = None,
+            scale: Optional[float] = None) -> torch.Tensor:
+    """Exact attention.  q: (B, H, S, D); k, v: (B, H, Skv, D) (kv already
+    repeated to H heads).  window = local attention span (None = global).
+    """
+    s, d, skv = q.shape[2], q.shape[3], k.shape[2]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    # the last query aligns with the last key
+    return _attend(q, k, v, _mask(s, skv, skv - s, causal, window,
+                                  q.device), scale)
+
+
+def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool = True, window: Optional[int] = None,
+                scale: Optional[float] = None,
+                q_chunk: int = 1024) -> torch.Tensor:
+    """Exact attention over query chunks, so the live score tensor is
+    (B, H, q_chunk, Skv) instead of (B, H, S, Skv).  Falls back to
+    ``mha_ref`` unless q_chunk divides S and S > q_chunk, as the JAX
+    package's version does."""
+    s, d, skv = q.shape[2], q.shape[3], k.shape[2]
+    if s % q_chunk or s <= q_chunk:
+        return mha_ref(q, k, v, causal, window, scale)
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    outs = []
+    for c0 in range(0, s, q_chunk):
+        # row c0 + i of the query sits at key position c0 + i + (skv - s)
+        mask = _mask(q_chunk, skv, c0 + skv - s, causal, window, q.device)
+        outs.append(_attend(q[:, :, c0:c0 + q_chunk], k, v, mask, scale))
+    return torch.cat(outs, dim=2)
+
+
+def attention_ref(q, k, v, causal: bool = True,
+                  window: Optional[int] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """The plain version of the attention kernel: repeat the kv heads to
+    H (GQA), then ``mha_ref``, or ``mha_chunked`` from S = 16384 on, as
+    the JAX package's ``ops`` does.  q (B, H, S, D); k, v (B, Hkv, Skv,
+    D)."""
+    h, hkv = q.shape[1], k.shape[1]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    if q.shape[2] >= CHUNKED_THRESHOLD:
+        return mha_chunked(q, k, v, causal, window, scale)
+    return mha_ref(q, k, v, causal, window, scale)

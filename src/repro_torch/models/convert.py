@@ -1,0 +1,88 @@
+"""Weights between the JAX package's parameter tree and the port's model.
+
+The JAX package's ``lm.init`` returns a tree whose superblock leaves are
+stacked on a leading ``stack`` axis (``p["blocks"]["b{j}"]``, one entry
+per repeat) and whose remainder layers are separate (``p["rem"]``).
+``params_from_jax`` takes that tree as numpy arrays and returns the
+port's ``LM``, which then computes what the JAX model computes:
+matrices cast once to the compute dtype (the JAX package casts them at
+every use), norm scales kept in f32.  ``params_to_jax`` is its inverse.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.engine import resolve_device
+from .lm import LM, layer_slots
+
+# port module path under a block → key path in the JAX block tree
+_BLOCK_LEAVES = {
+    "ln1.scale": ("ln1", "scale"), "ln1.bias": ("ln1", "bias"),
+    "ln2.scale": ("ln2", "scale"), "ln2.bias": ("ln2", "bias"),
+    "attn.wq": ("attn", "wq"), "attn.wk": ("attn", "wk"),
+    "attn.wv": ("attn", "wv"), "attn.wo": ("attn", "wo"),
+    "mlp.wi": ("mlp", "wi"), "mlp.wg": ("mlp", "wg"),
+    "mlp.wo": ("mlp", "wo"),
+}
+_TOP_LEAVES = {"embed": ("embed",), "head": ("head",),
+               "ln_f.scale": ("ln_f", "scale"),
+               "ln_f.bias": ("ln_f", "bias")}
+
+
+def _leaf_paths(cfg: ModelConfig, model: LM):
+    """(port parameter, JAX key path, stack index or None) for every
+    parameter of the model."""
+    params = dict(model.named_parameters())
+    for name, path in _TOP_LEAVES.items():
+        if name in params:
+            yield params[name], path, None
+    for i, (group, key, r) in enumerate(layer_slots(cfg)):
+        for name, path in _BLOCK_LEAVES.items():
+            full = f"blocks.{i}.{name}"
+            if full in params:
+                yield params[full], (group, key) + path, r
+
+
+@torch.no_grad()
+def params_from_jax(cfg: ModelConfig, tree: Dict, device=None) -> LM:
+    """The port's model holding the weights of the JAX package's
+    ``lm.init(cfg, key)[0]`` tree, given as numpy arrays."""
+    model = LM(cfg, resolve_device(device))
+    for param, path, r in _leaf_paths(cfg, model):
+        leaf = tree
+        for k in path:
+            leaf = leaf[k]
+        a = np.asarray(leaf if r is None else leaf[r])
+        if a.shape != tuple(param.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {a.shape}, the port "
+                             f"expects {tuple(param.shape)}")
+        param.copy_(torch.from_numpy(np.array(a, np.float32)))
+    return model
+
+
+@torch.no_grad()
+def params_to_jax(cfg: ModelConfig, model: LM) -> Dict:
+    """The inverse: the JAX package's parameter tree as float32 numpy
+    arrays, block leaves stacked on the leading ``stack`` axis."""
+    tree: Dict = {}
+    stacks: Dict = {}
+    for param, path, r in _leaf_paths(cfg, model):
+        a = param.float().cpu().numpy()
+        if r is None:
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = a
+        else:
+            stacks.setdefault(path, {})[r] = a
+    for path, rows in stacks.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.stack([rows[r] for r in sorted(rows)])
+    return tree

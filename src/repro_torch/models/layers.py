@@ -1,0 +1,251 @@
+"""Transformer building blocks: norms, RoPE, GQA attention, MLPs.
+
+The JAX package's ``models/layers.py`` in PyTorch, for the dense GQA
+families.  Each block is an ``nn.Module`` that holds its parameters; the
+functions keep the JAX package's names and take the module as ``p``.
+
+Weights.  The JAX package keeps f32 master weights and casts each one to
+``cfg.compute_dtype`` at every use.  Serving needs no master copy, so the
+port holds every matrix in the compute dtype, cast once at load: the same
+operands at half the bytes in bf16.  Norm scales stay f32, as
+``norm_apply`` uses them.
+
+Not ported here (``ROADMAP.md``): MLA, cross-attention, the local
+(ring-buffer) attention block and ``_decode_attend_flash``, which needs a
+mesh.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+def _weight(shape, cfg: ModelConfig, device) -> nn.Parameter:
+    """An uninitialised matrix in the compute dtype; ``lm.init`` or
+    ``convert.params_from_jax`` fills it."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype_of(cfg.compute_dtype),
+                                    device=device), requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+class Norm(nn.Module):
+    def __init__(self, cfg: ModelConfig, d: Optional[int] = None,
+                 device=None):
+        super().__init__()
+        d = d or cfg.d_model
+        self.scale = nn.Parameter(
+            torch.ones((d,), dtype=torch.float32, device=device),
+            requires_grad=False)
+        if cfg.norm == "layernorm":
+            self.bias = nn.Parameter(
+                torch.zeros((d,), dtype=torch.float32, device=device),
+                requires_grad=False)
+
+
+norm_init = Norm
+
+
+def norm_apply(cfg: ModelConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5) * p.scale + p.bias
+    else:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + 1e-6) * p.scale
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (full / partial-fraction "2d")
+# ---------------------------------------------------------------------------
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               fraction: float = 1.0) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S).  Rotates the first
+    ``fraction`` of D (chatglm-style 2d/partial rotary when < 1)."""
+    d = x.shape[-1]
+    rot = int(d * fraction) // 2 * 2
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs  # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    x1, x2 = xr[..., :half], xr[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out, xp], dim=-1) if rot < d else out
+
+
+# ---------------------------------------------------------------------------
+# GQA self-attention
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """wq (d, H, hd), wk/wv (d, KV, hd), wo (H, hd, d): the JAX layout."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.head_dim)
+        self.wq = _weight((d, h, hd), cfg, device)
+        self.wk = _weight((d, kv, hd), cfg, device)
+        self.wv = _weight((d, kv, hd), cfg, device)
+        self.wo = _weight((h, hd, d), cfg, device)
+
+
+attn_init = Attention
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk", x, w) as one matmul."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd", o, wo.astype(o.dtype)) as one matmul."""
+    h, k, d = wo.shape
+    return o.flatten(-2) @ wo.to(o.dtype).reshape(h * k, d)
+
+
+def _qkv(cfg, p: Attention, x, positions):
+    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        kpos = torch.arange(k.shape[1], device=x.device)[None].expand(
+            k.shape[:2])
+        k = apply_rope(k, kpos, cfg.rope_theta, cfg.rope_fraction)
+    return q, k, v
+
+
+def _self_attend(cfg, p: Attention, x, positions, window):
+    q, k, v = _qkv(cfg, p, x, positions)
+    o = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2), causal=True, window=window)
+    return _out(o.transpose(1, 2), p.wo), k, v
+
+
+def attn_apply(cfg: ModelConfig, p: Attention, x, *, positions,
+               window=None):
+    """Full-sequence causal self-attention (train / prefill)."""
+    return _self_attend(cfg, p, x, positions, window)[0]
+
+
+def attn_prefill(cfg: ModelConfig, p: Attention, x, *, positions, cache,
+                 window=None):
+    """Prefill: writes K/V into the first S rows of ``cache`` (tensors
+    (B, cache_len, KV, hd), zero beyond: the JAX package's padded cache)
+    and returns (out, cache)."""
+    out, k, v = _self_attend(cfg, p, x, positions, window)
+    cache["k"][:, :k.shape[1]] = k
+    cache["v"][:, :v.shape[1]] = v
+    return out, cache
+
+
+def attn_decode(cfg: ModelConfig, p: Attention, x, cache, *, pos,
+                window=None):
+    """One-token decode against a (B, S_max, KV, hd) cache.  ``pos`` is the
+    index of the new token, (B,) or scalar.  Writes the new K/V into
+    ``cache`` in place and returns (out, cache)."""
+    b = x.shape[0]
+    pos_arr = torch.as_tensor(pos, device=x.device).expand(b)
+    q, k_new, v_new = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, pos_arr[:, None], cfg.rope_theta,
+                       cfg.rope_fraction)
+        k_new = apply_rope(k_new, pos_arr[:, None], cfg.rope_theta,
+                           cfg.rope_fraction)
+    _scatter_time(cache["k"], k_new, pos_arr)
+    _scatter_time(cache["v"], v_new, pos_arr)
+    o = _decode_attend_local(q, cache["k"], cache["v"], pos_arr, window)
+    return _out(o, p.wo), cache
+
+
+def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
+                  pos: torch.Tensor) -> None:
+    """cache (B, S, KV, hd) ← new (B, 1, KV, hd) at per-batch pos, in place.
+
+    The JAX package rewrites the whole cache through a one-hot,
+    ``cache * (1 - onehot) + onehot * new``, which for finite values is
+    the cache with row pos replaced by new: the same values.  A position
+    at or past S writes nothing there, and nothing here either."""
+    b, s = cache.shape[:2]
+    rows = torch.arange(b, device=cache.device)
+    idx = pos.clamp(max=s - 1)
+    keep = (pos >= s)[:, None, None]
+    cache[rows, idx] = torch.where(keep, cache[rows, idx],
+                                   new[:, 0].to(cache.dtype))
+
+
+def _decode_attend_local(q, k, v, pos, window):
+    """q (B, 1, H, hd); k, v (B, S, KV, hd); masked softmax over the
+    cached length.  Query head h reads kv head h // (H / KV): the heads
+    are grouped, not repeated, which computes the same products."""
+    b, _, h, hd = q.shape
+    kvh = k.shape[2]
+    cd = torch.promote_types(q.dtype, k.dtype)
+    qg = q.reshape(b, kvh, h // kvh, hd).to(cd)
+    scale = 1.0 / (hd ** 0.5)
+    s = torch.einsum("bgrk,bsgk->bgrs", qg, k.to(cd)).float() * scale
+    kpos = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+    posb = pos[:, None, None, None]
+    mask = kpos <= posb
+    if window is not None:
+        mask &= kpos > posb - window
+    s = s.masked_fill(~mask, -torch.inf)
+    pda = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("bgrs,bsgk->bgrk", pda, v)
+    return o.reshape(b, 1, h, hd)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, d_ff: Optional[int] = None,
+                 device=None):
+        super().__init__()
+        d, ff = cfg.d_model, d_ff or cfg.d_ff
+        self.wi = _weight((d, ff), cfg, device)
+        if cfg.mlp_kind == "swiglu":
+            self.wg = _weight((d, ff), cfg, device)
+        self.wo = _weight((ff, d), cfg, device)
+
+
+mlp_init = MLP
+
+
+def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p.wi.to(x.dtype)
+    if cfg.mlp_kind == "swiglu":
+        h = F.silu(x @ p.wg.to(x.dtype)) * h
+    elif cfg.mlp_kind == "squared_relu":
+        h = torch.relu(h).square()
+    else:  # gelu, tanh-approximated as jax.nn.gelu's default
+        h = F.gelu(h, approximate="tanh")
+    return h @ p.wo.to(x.dtype)

@@ -1,0 +1,236 @@
+"""The decoder stack: init, forward, prefill and one-token decode.
+
+The JAX package's ``models/lm.py`` in PyTorch for the dense GQA families
+(block kind ``attn``: granite-3-2b, chatglm3-6b, nemotron-4-340b).  The
+other block kinds (``moe``, ``rwkv``, ``recurrent``, ``local_attn``,
+``cross_attn``, ``decoder``), MLA, learned positions and the encoder are
+not ported yet: building a config that needs them raises
+``NotImplementedError`` naming ``ROADMAP.md``.
+
+The JAX package stacks each superblock position's layers on a leading
+axis and ``lax.scan``s over it; here ``LM.blocks`` holds every layer in
+order (superblock r, position j; then the remainder) and a Python loop
+walks them.  The cache keeps the JAX package's tree, leaves stacked on a
+leading layer axis, so ``cache_axes`` names the same dimensions.
+
+Entry points:
+  init(cfg, generator, device)                   → LM (random weights)
+  forward(cfg, model, tokens)                    → logits (B, S, V)
+  prefill(cfg, model, tokens, cache_len)         → last logits (B, V),
+                                                   cache
+  decode_step(cfg, model, cache, token, pos)     → logits (B, V), cache
+                                                   (updated in place)
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..core.engine import resolve_device
+from . import cache as cache_lib
+from . import layers
+
+
+def layer_slots(cfg: ModelConfig) -> List[Tuple[str, str, Optional[int]]]:
+    """(group, key, stack index) of every layer in execution order: the
+    JAX package's ``p["blocks"]["b{j}"]`` leaves at index r, then
+    ``p["rem"]["r{j}"]``."""
+    slots = [("blocks", f"b{j}", r) for r in range(cfg.pattern_repeats)
+             for j in range(len(cfg.block_pattern))]
+    slots += [("rem", f"r{j}", None)
+              for j in range(len(cfg.remainder_layers))]
+    return slots
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.ln1 = layers.norm_init(cfg, device=device)
+        self.attn = layers.attn_init(cfg, device=device)
+        self.ln2 = layers.norm_init(cfg, device=device)
+        self.mlp = layers.mlp_init(cfg, device=device)
+
+
+class LM(nn.Module):
+    """embed (V, d), head (d, V) unless tied, ln_f, and one ``Block`` per
+    layer.  Matrices in ``cfg.compute_dtype``, norm scales in f32."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        for kind in cfg.block_pattern:
+            cache_lib.check_ported(cfg, kind)
+        self.cfg = cfg
+        self.embed = layers._weight((cfg.vocab_size, cfg.d_model), cfg,
+                                    device)
+        if not cfg.tie_embeddings:
+            self.head = layers._weight((cfg.d_model, cfg.vocab_size), cfg,
+                                       device)
+        self.ln_f = layers.norm_init(cfg, device=device)
+        self.blocks = nn.ModuleList(Block(cfg, device)
+                                    for _ in layer_slots(cfg))
+
+
+def _fill(w: nn.Parameter, fan_in: int, gen: torch.Generator) -> None:
+    """normal(0, 1) / sqrt(fan_in), drawn in f32, as the JAX ``_init``."""
+    z = torch.randn(w.shape, generator=gen, dtype=torch.float32,
+                    device=w.device)
+    w.copy_(z * fan_in ** -0.5)
+
+
+@torch.no_grad()
+def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+         device=None) -> LM:
+    """A model with random weights from ``generator`` (default: seed 0 on
+    ``device``).  Its draws are not ``jax.random``'s: to compare with the
+    JAX package, convert its parameters (``convert.params_from_jax``)."""
+    device = resolve_device(device)
+    gen = generator if generator is not None else \
+        torch.Generator(device=device).manual_seed(0)
+    model = LM(cfg, device)
+    d, hd = cfg.d_model, cfg.head_dim
+    _fill(model.embed, d, gen)
+    if not cfg.tie_embeddings:
+        _fill(model.head, d, gen)
+    for blk in model.blocks:
+        for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.mlp.wi):
+            _fill(w, d, gen)
+        _fill(blk.attn.wo, cfg.num_heads * hd, gen)
+        if cfg.mlp_kind == "swiglu":
+            _fill(blk.mlp.wg, d, gen)
+        _fill(blk.mlp.wo, cfg.d_ff, gen)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def block_apply(cfg: ModelConfig, p: Block, x, *, positions):
+    """Full-sequence forward of one block."""
+    h = layers.norm_apply(cfg, p.ln1, x)
+    x = x + layers.attn_apply(cfg, p.attn, h, positions=positions)
+    h2 = layers.norm_apply(cfg, p.ln2, x)
+    return x + layers.mlp_apply(cfg, p.mlp, h2)
+
+
+def block_prefill(cfg: ModelConfig, p: Block, x, *, positions, cache):
+    """Forward + this block's decode cache, written into ``cache``."""
+    h = layers.norm_apply(cfg, p.ln1, x)
+    att, c = layers.attn_prefill(cfg, p.attn, h, positions=positions,
+                                 cache=cache)
+    x = x + att
+    h2 = layers.norm_apply(cfg, p.ln2, x)
+    return x + layers.mlp_apply(cfg, p.mlp, h2), c
+
+
+def block_decode(cfg: ModelConfig, p: Block, x, c, *, pos):
+    """One-token step; updates ``c`` in place.  Returns (x, c)."""
+    h = layers.norm_apply(cfg, p.ln1, x)
+    att, c = layers.attn_decode(cfg, p.attn, h, c, pos=pos)
+    x = x + att
+    h2 = layers.norm_apply(cfg, p.ln2, x)
+    return x + layers.mlp_apply(cfg, p.mlp, h2), c
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+
+def _embed(cfg: ModelConfig, model: LM, tokens):
+    return model.embed[tokens]
+
+
+def _logits(cfg: ModelConfig, model: LM, x):
+    x = layers.norm_apply(cfg, model.ln_f, x)
+    if cfg.tie_embeddings:
+        return x @ model.embed.to(x.dtype).T
+    return x @ model.head.to(x.dtype)
+
+
+def _positions(tokens):
+    b, s = tokens.shape
+    return torch.arange(s, device=tokens.device)[None].expand(b, s)
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, model: LM,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) → logits (B, S, V): the forward half of the JAX
+    package's ``forward_train`` (no gradient, no aux loss)."""
+    x = _embed(cfg, model, tokens)
+    positions = _positions(tokens)
+    for blk in model.blocks:
+        x = block_apply(cfg, blk, x, positions=positions)
+    return _logits(cfg, model, x)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               dtype=torch.bfloat16, device=None) -> Dict:
+    """The JAX package's cache tree, each ``blocks`` leaf stacked on a
+    leading layer axis."""
+    device = resolve_device(device)
+
+    def zeros(kind, stack):
+        one = cache_lib.block_cache_init(cfg, kind, batch, cache_len,
+                                         dtype, device="meta")
+        return {n: torch.zeros(stack + t.shape, dtype=dtype, device=device)
+                for n, t in one.items()}
+
+    c = {"blocks": {f"b{j}": zeros(kind, (cfg.pattern_repeats,))
+                    for j, kind in enumerate(cfg.block_pattern)}}
+    if cfg.remainder_layers:
+        c["rem"] = {f"r{j}": zeros(kind, ())
+                    for j, kind in enumerate(cfg.remainder_layers)}
+    return c
+
+
+def cache_axes(cfg: ModelConfig) -> Dict:
+    c = {"blocks": {
+        f"b{j}": {n: "stack " + ax for n, ax in
+                  cache_lib.block_cache_axes(cfg, kind).items()}
+        for j, kind in enumerate(cfg.block_pattern)}}
+    if cfg.remainder_layers:
+        c["rem"] = {f"r{j}": cache_lib.block_cache_axes(cfg, kind)
+                    for j, kind in enumerate(cfg.remainder_layers)}
+    return c
+
+
+def layer_caches(cfg: ModelConfig, cache: Dict) -> List[Dict]:
+    """Per-layer views into the cache tree, in execution order."""
+    out = []
+    for group, key, r in layer_slots(cfg):
+        leaves = cache[group][key]
+        out.append({n: t if r is None else t[r] for n, t in leaves.items()})
+    return out
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
+            cache_len: int):
+    """tokens (B, S) → (last-token logits (B, V), cache padded to
+    cache_len, in the compute dtype)."""
+    b, s = tokens.shape
+    x = _embed(cfg, model, tokens)
+    positions = _positions(tokens)
+    cache = init_cache(cfg, b, cache_len, dtype=x.dtype, device=x.device)
+    for blk, c in zip(model.blocks, layer_caches(cfg, cache)):
+        x, _ = block_prefill(cfg, blk, x, positions=positions, cache=c)
+    return _logits(cfg, model, x[:, -1:, :])[:, 0], cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, model: LM, cache: Dict,
+                token: torch.Tensor, pos):
+    """token (B,); pos: scalar or (B,) position of the new token.
+    Returns (logits (B, V), cache): the cache is updated in place."""
+    x = _embed(cfg, model, token[:, None])
+    pos_arr = torch.as_tensor(pos, device=x.device).expand(token.shape[0])
+    for blk, c in zip(model.blocks, layer_caches(cfg, cache)):
+        x, _ = block_decode(cfg, blk, x, c, pos=pos_arr)
+    return _logits(cfg, model, x)[:, 0], cache

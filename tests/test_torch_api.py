@@ -338,7 +338,10 @@ def test_sources_import_no_jax_or_reference():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.api, repro_torch.core, "
-            "repro_torch.kernels.ops\n"
+            "repro_torch.kernels.ops, repro_torch.models.lm, "
+            "repro_torch.serve.engine, repro_torch.launch.serve\n"
+            "from repro_torch.configs import get_config\n"
+            "get_config('granite-3-2b')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\nprint('ok')")
