@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA GPU: the graph engine's main
-path and LM serving (granite-3-2b at full width), every hand-written
-kernel against its plain version.
+path, LM serving (granite-3-2b at full width) and RWKV-6 serving
+(rwkv6-1.6b at full width and depth), every hand-written kernel against
+its plain version.
 
-    python3 chip_smoke.py            # everything (about 5 minutes)
+    python3 chip_smoke.py            # everything (about 7 minutes)
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
@@ -12,10 +13,10 @@ Phases, in order; any mismatch raises and the script exits non-zero:
   2. build the CUDA libraries from ``src/repro_torch/kernels/csrc`` (one
      nvcc per source, started together; sm_90a) and print the build time
      and ptxas's register report;
-  3. each kernel against its plain torch version on the card: the CA
-     stand-in at scale 0.02 for the 4 semirings × B ∈ {16, 32}, the fused
-     kernel over 5 update rules × {empty, sparse, dense} frontiers at
-     Q = 1 and 4, garbage beyond nnz;
+  3. each SpMV kernel against its plain torch version on the card: the
+     CA stand-in at scale 0.02 for the 4 semirings × B ∈ {16, 32}, the
+     fused kernel over 5 update rules × {empty, sparse, dense} frontiers
+     at Q = 1 and 4, garbage beyond nnz;
   4. the main path at full width: ``GraphProcessor`` on the full-scale
      CA stand-in (n = 1,962,801) at b=16, 64 clusters, with every query
      checked against the numpy oracles and ``degrade=False``; before the
@@ -32,25 +33,43 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      D = 128, and B 1 x H 32 x S 16384 causal; each case within an
      elementwise and a relative-L2 limit, and a planted fault (one key
      tile dropped) must break both;
-  7. LM serving, the main path of the slice: granite-3-2b (40 layers,
-     d_model 2048, 2.53 B parameters, random weights from seed 0, bf16)
-     through ``generate`` (4 prompts x 1024 tokens, 32 new) and
-     ``ServeLoop`` (4 slots, 8 such requests); the first wave's tokens
-     equal the static batch's, and ``launch_counts["flash_attention"]``
-     is 40 x the prefills; one wave's prefill logits against the same
-     model with mha_ref, beside the distance a dropped key tile in every
-     layer gives; prefill tokens/s, time to first token, decode
-     ms/step and tokens/s, the device idle share over decode steps;
-  8. the kernel's time at the granite prefill shape, its bound
+  7. LM serving: granite-3-2b (40 layers, d_model 2048, 2.53 B
+     parameters, random weights from seed 0, bf16) through ``generate``
+     (4 prompts x 1024 tokens, 32 new) and ``ServeLoop`` (4 slots, 8 such
+     requests); the first wave's tokens equal the static batch's, and
+     ``launch_counts["flash_attention"]`` is 40 x the prefills; one
+     wave's prefill logits against the same model with mha_ref, beside
+     the distance a dropped key tile in every layer gives; prefill
+     tokens/s, time to first token, decode ms/step and tokens/s, the
+     device idle share over decode steps;
+  8. flash attention's time at the granite prefill shape, its bound
      (operations at the bf16 tensor-core peak), the plain version's time
-     and ``scaled_dot_product_attention``'s as the yardstick;
-  9. a JSON line with every kernel; the last line is
+     and ``scaled_dot_product_attention``'s as the yardstick; then
+     granite's weights are freed;
+  9. the WKV6 kernel against its plain version: the four shapes of
+     tests/test_wkv6_kernel.py, the rwkv6-1.6b prefill shape (B 4, T
+     1024, H 32, hs 64) in bf16 and f32 with per-head u and a nonzero
+     state, and a decode step in place; y and the final state each within
+     an elementwise and a relative-L2 limit, and two planted faults (u
+     dropped; the last step's decay skipped) must break them;
+ 10. RWKV-6 serving: rwkv6-1.6b (24 layers, d_model 2048, 32 heads of
+     64, 1.60 B parameters, random from seed 0 with the constant leaves
+     drawn around their init values, bf16) through the same traffic as
+     granite; ``launch_counts["wkv6"]`` is 24 x (prefills + decode steps);
+     the first wave's tokens equal the static batch's; one wave's prefill
+     logits against the same model with the plain WKV6, with the weights
+     upcast to f32 (the gate, 1e-4) and in bf16, beside a dropped u in
+     every layer; the serving metrics as for granite;
+ 11. the WKV6 kernel's time at the prefill shape and at a decode step,
+     its bound (operations at the f32 CUDA-core peak, or bytes) and the
+     plain version's time (no library call computes WKV6);
+ 12. a JSON line with every kernel; the last line is
      ``{"ok": true, "device": {...}}``.
 
 Each earlier JSON line carries the card's name and power limit.  To
 iterate on one part, call the phases from Python, e.g.
 
-    python3 -c 'import chip_smoke as c; c.setup(); c.build_all(); c.lm_phases()'
+    python3 -c 'import chip_smoke as c; c.setup(); c.build_all(); c.rwkv_phases()'
 """
 
 from __future__ import annotations
@@ -386,6 +405,29 @@ def device_busy(events):
              for e in top])
 
 
+def kernel_device_ms(fn, name, reps=20):
+    """Device time of one launch of the kernel whose name holds ``name``,
+    from torch.profiler over ``reps`` calls of ``fn``: the host's share
+    of a call, which CUDA events around a small call also count, is left
+    out.  "not measured" when the profiler records no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and name in e.key]
+    if not evs:
+        return "not measured"
+    return (sum(e.self_device_time_total for e in evs)
+            / sum(e.count for e in evs) / 1e3)
+
+
 def device_share(name, fn):
     """Device busy time over one query under torch.profiler, against the
     query's wall (the profiler adds host overhead, so the idle share is an
@@ -713,21 +755,22 @@ def dropped_tile_attention(q, k, v, causal=True, window=None, scale=None):
     return (p.to(v.dtype) @ v).to(q.dtype)
 
 
-class attention_swapped:
-    """Within the block the model's attention (``ops.attention``) is
-    ``fn``: the plain version for the logit check, or a planted fault;
-    never a path of the port."""
+class ops_swapped:
+    """Within the block the model's ``ops.<name>`` (``attention`` or
+    ``wkv6``) is ``fn``: the plain version for a logit check, or a
+    planted fault; never a path of the port."""
 
-    def __init__(self, fn):
-        self.fn = fn
+    def __init__(self, name, fn):
+        self.name, self.fn = name, fn
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        self.saved, ops.attention = ops.attention, self.fn
+        self.saved = getattr(ops, self.name)
+        setattr(ops, self.name, self.fn)
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
-        ops.attention = self.saved
+        setattr(ops, self.name, self.saved)
 
 
 def check_tokens(cfg, model, prompts, static, reqs):
@@ -780,10 +823,10 @@ def check_prefill_logits(cfg, model, toks):
     plain = {}
     for dt, m in (("bfloat16", model), ("float32", m32)):
         got, _ = lm.prefill(cfg, m, toks, cache_len=PROMPT_LEN)
-        with attention_swapped(ref.attention_ref):
+        with ops_swapped("attention", ref.attention_ref):
             want, _ = lm.prefill(cfg, m, toks, cache_len=PROMPT_LEN)
             half, _ = lm.prefill(cfg, m, toks[:2], cache_len=PROMPT_LEN)
-        with attention_swapped(dropped_tile_attention):
+        with ops_swapped("attention", dropped_tile_attention):
             bad, _ = lm.prefill(cfg, m, toks, cache_len=PROMPT_LEN)
         plain[dt] = want
         err = rel(got, want)
@@ -803,7 +846,7 @@ def check_prefill_logits(cfg, model, toks):
     torch.cuda.empty_cache()
 
 
-def decode_idle_share(cfg, model, cache, tok, pos):
+def decode_idle_share(cfg, model, cache, tok, pos, phase):
     """Device busy time over a few decode steps under torch.profiler,
     against the steps' wall (the profiler adds host time, so the idle
     share is an upper bound)."""
@@ -827,19 +870,120 @@ def decode_idle_share(cfg, model, cache, tok, pos):
                device_busy_s=busy if busy > 0 else "not measured",
                idle_share=1 - busy / wall if busy > 0 else "not measured",
                top=top)
-    emit(phase="decode_profile", **rec)
+    emit(phase=phase, **rec)
     return rec
 
 
-def lm_path(gen):
+def serve_traffic(cfg, model, counts, reset, phase):
+    """The main path of a serving slice: ``generate`` on PROMPTS prompts
+    of PROMPT_LEN random tokens with NEW_TOKENS new ones, then
+    SERVE_REQUESTS such requests through SERVE_SLOTS ``ServeLoop`` slots.
+    The kernel counts are set to 0 just before and read just after.
+    Checks the static batch's shape and the first wave's tokens; returns
+    (prompts, launches, prefills, decode steps)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import engine as serve
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(2, cfg.vocab_size,
+                           (SERVE_REQUESTS, PROMPT_LEN)).astype(np.int32)
+    reset()  # the main path starts here
+    t0 = time.perf_counter()
+    static = serve.generate(cfg, model, prompts[:PROMPTS], NEW_TOKENS)
+    static_wall = time.perf_counter() - t0
+    sl = serve.ServeLoop(cfg, model, num_slots=SERVE_SLOTS,
+                         cache_len=PROMPT_LEN + NEW_TOKENS)
+    reqs = [serve.Request(rid=i, prompt=prompts[i], max_new=NEW_TOKENS)
+            for i in range(SERVE_REQUESTS)]
+    for r in reqs:
+        sl.submit(r)
+    t0 = time.perf_counter()
+    steps = sl.run()
+    torch.cuda.synchronize()
+    loop_wall = time.perf_counter() - t0
+    launches = dict(counts)  # the main path ends here
+    prefills = 1 + -(-SERVE_REQUESTS // SERVE_SLOTS)
+    decode_steps = NEW_TOKENS - 1 + steps
+    emit(phase=phase, static_wall_s=static_wall,
+         serve_loop_wall_s=loop_wall, serve_loop_steps=steps,
+         prefills=prefills, decode_steps=decode_steps, **launches)
+    if static.shape != (PROMPTS, PROMPT_LEN + NEW_TOKENS) or \
+            not (static[:, :PROMPT_LEN] == prompts[:PROMPTS]).all():
+        raise AssertionError(f"generate returned {static.shape}")
+    flips = check_tokens(cfg, model, prompts, static, reqs)
+    emit(phase=phase + "_tokens", ok=True, flips=len(flips),
+         flip_detail=flips, requests=len(reqs))
+    return prompts, launches, prefills, decode_steps
+
+
+def serving_metrics(cfg, model, toks, counts, phase):
+    """Prefill tokens/s, TTFT, decode ms/step and tokens/s, the kernel's
+    launches per decode step, and the device idle share over a few decode
+    steps (host clock, synchronised).  TTFT: the prefill of the wave and
+    its first tokens on the host, which every request of the wave waits
+    for."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+    cache_len = PROMPT_LEN + NEW_TOKENS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm.prefill(cfg, model, toks, cache_len=cache_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, top = device_busy(prof.key_averages())
+    emit(phase=phase + "_prefill_profile", wall_s=wall,
+         device_busy_s=busy if busy > 0 else "not measured",
+         idle_share=1 - busy / wall if busy > 0 else "not measured",
+         top=top)
+    prefill_s, ttft_s = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(cfg, model, toks, cache_len=cache_len)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = logits.argmax(-1)
+        tok.cpu()
+        prefill_s.append(t1 - t0)
+        ttft_s.append(time.perf_counter() - t0)
+    steps_t = []
+    pos = PROMPT_LEN
+    before = dict(counts)
+    for i in range(NEW_TOKENS - 1 - DECODE_PROFILE_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = lm.decode_step(cfg, model, cache, tok, pos + i)
+        tok = logits.argmax(-1)
+        tok.cpu()  # the host reads every token, as generate does
+        steps_t.append(time.perf_counter() - t0)
+    per_step = {k: (counts[k] - before[k]) / len(steps_t) for k in counts}
+    step_ms = statistics.median(steps_t) * 1e3
+    prof = decode_idle_share(cfg, model, cache, tok, pos + len(steps_t),
+                             phase + "_decode_profile")
+    rec = dict(
+        prefill_tokens_per_s=PROMPTS * PROMPT_LEN / statistics.median(
+            prefill_s),
+        prefill_s=statistics.median(prefill_s),
+        ttft_s=statistics.median(ttft_s),
+        decode_ms_per_step=step_ms,
+        decode_tokens_per_s=PROMPTS / step_ms * 1e3,
+        kernel_launches_per_decode_step=per_step,
+        decode_idle_share=prof["idle_share"], batch=PROMPTS,
+        prompt_len=PROMPT_LEN, peak_gb=torch.cuda.max_memory_allocated()
+        / 1e9)
+    emit(phase=phase, **rec)
+    return rec
+
+
+def lm_path():
     """Serve granite-3-2b at full width: static generate and ServeLoop
     with every prefill through the kernel, then the serving metrics."""
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import lm
-    from repro_torch.serve import engine as serve
 
     cfg = get_config(LM_ARCH)
     if LM_REDUCED:
@@ -854,80 +998,18 @@ def lm_path(gen):
          weight_gb=sum(p.numel() * p.element_size()
                        for p in model.parameters()) / 1e9,
          seconds=time.perf_counter() - t0)
-    rng = np.random.default_rng(0)
-    prompts = rng.integers(2, cfg.vocab_size,
-                           (SERVE_REQUESTS, PROMPT_LEN)).astype(np.int32)
-    cache_len = PROMPT_LEN + NEW_TOKENS
 
-    fa.reset_launch_counts()  # the main path starts here
-    t0 = time.perf_counter()
-    static = serve.generate(cfg, model, prompts[:PROMPTS], NEW_TOKENS)
-    static_wall = time.perf_counter() - t0
-    sl = serve.ServeLoop(cfg, model, num_slots=SERVE_SLOTS,
-                         cache_len=cache_len)
-    reqs = [serve.Request(rid=i, prompt=prompts[i], max_new=NEW_TOKENS)
-            for i in range(SERVE_REQUESTS)]
-    for r in reqs:
-        sl.submit(r)
-    t0 = time.perf_counter()
-    steps = sl.run()
-    torch.cuda.synchronize()
-    loop_wall = time.perf_counter() - t0
-    launches = dict(fa.launch_counts)  # the main path ends here
-    prefills = 1 + -(-SERVE_REQUESTS // SERVE_SLOTS)
-    emit(phase="lm_main_path", static_wall_s=static_wall,
-         serve_loop_wall_s=loop_wall, serve_loop_steps=steps,
-         prefills=prefills, **launches)
+    prompts, launches, prefills, _ = serve_traffic(
+        cfg, model, fa.launch_counts, fa.reset_launch_counts, "lm_main_path")
     if launches["flash_attention"] != cfg.num_layers * prefills:
         raise AssertionError(
             f"flash_attention launched {launches['flash_attention']} "
             f"times, expected {cfg.num_layers} x {prefills} prefills")
-    if static.shape != (PROMPTS, PROMPT_LEN + NEW_TOKENS) or \
-            not (static[:, :PROMPT_LEN] == prompts[:PROMPTS]).all():
-        raise AssertionError(f"generate returned {static.shape}")
-    flips = check_tokens(cfg, model, prompts, static, reqs)
-    emit(phase="lm_tokens", ok=True, flips=len(flips), flip_detail=flips,
-         requests=len(reqs))
 
     toks = torch.as_tensor(prompts[:PROMPTS], dtype=torch.long,
                            device=DEVICE)
     check_prefill_logits(cfg, model, toks)
-
-    # serving metrics (host clock, synchronised).  TTFT: the prefill of
-    # the wave and its first tokens on the host, which every request of
-    # the wave waits for.
-    prefill_s, ttft_s = [], []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = lm.prefill(cfg, model, toks, cache_len=cache_len)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        tok = logits.argmax(-1)
-        tok.cpu()
-        prefill_s.append(t1 - t0)
-        ttft_s.append(time.perf_counter() - t0)
-    steps_t = []
-    pos = PROMPT_LEN
-    for i in range(NEW_TOKENS - 1 - DECODE_PROFILE_STEPS):
-        t0 = time.perf_counter()
-        logits, cache = lm.decode_step(cfg, model, cache, tok, pos + i)
-        tok = logits.argmax(-1)
-        tok.cpu()  # the host reads every token, as generate does
-        steps_t.append(time.perf_counter() - t0)
-    step_ms = statistics.median(steps_t) * 1e3
-    prof = decode_idle_share(cfg, model, cache, tok, pos + len(steps_t))
-    rec = dict(
-        prefill_tokens_per_s=PROMPTS * PROMPT_LEN / statistics.median(
-            prefill_s),
-        prefill_s=statistics.median(prefill_s),
-        ttft_s=statistics.median(ttft_s),
-        decode_ms_per_step=step_ms,
-        decode_tokens_per_s=PROMPTS / step_ms * 1e3,
-        decode_idle_share=prof["idle_share"], batch=PROMPTS,
-        prompt_len=PROMPT_LEN, peak_gb=torch.cuda.max_memory_allocated()
-        / 1e9)
-    emit(phase="lm_serving", **rec)
+    rec = serving_metrics(cfg, model, toks, fa.launch_counts, "lm_serving")
     return launches, rec
 
 
@@ -964,14 +1046,353 @@ def time_attention(gen, errs_max, launches):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib}
 
 
+# -- RWKV-6 serving: the WKV6 kernel and rwkv6-1.6b -------------------------
+
+RWKV_ARCH = "rwkv6-1.6b"
+F32_PEAK_FLOPS = 67e12      # H100 SXM f32 on the CUDA cores, data sheet
+WKV_HEADS, WKV_HS = 32, 64  # rwkv6-1.6b: d_model 2048 / head size 64
+# kernel vs plain.  y: |Δ| <= tol·(|plain| + rms(plain)) elementwise (the
+# rms term: y sums hs products, and an output near 0 keeps its terms'
+# rounding), and ‖Δ‖₂/‖plain‖₂ <= rel; the final state (f32 in both
+# dtypes) is held to the f32 limits.  The plain version repeats the
+# kernel's order of operations (-fmad=false there), so both read 0; the
+# limits are those of a sum over i in another order, which is what a
+# kernel that reordered it would show: in f32 about 1.6e-7 relative L2,
+# in bf16 one output in a few thousand a bf16 step away (2.7e-5).
+WKV_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+WKV_REL_L2 = {"bfloat16": 1e-2, "float32": 1e-5}
+# prefill logits, kernel vs the plain WKV6 over one wave, relative L2.
+# The plain version repeats the kernel's order, so a right kernel reads
+# 0.  Each limit must also pass a right kernel that sums y in another
+# order (torch.einsum) and fail one that drops u in every layer: the
+# script reads both and fails if either is on the wrong side.  f32 is
+# the gate; bf16 is looser, since a bf16 step of y travels 24 layers.
+# Read at full width on an H100 80GB HBM3 at 700 W: the other order
+# 3.6e-6 (f32) and 3.5e-2 (bf16), a dropped u 0.27 in both.
+RWKV_LOGIT_REL_TOL = {"bfloat16": 1e-1, "float32": 1e-4}
+
+
+def wkv6_bound(b, t, h, hs, elem):
+    """Least time for one call: the operations the function needs at the
+    f32 CUDA-core peak, or r, k, v, w read, y written, u read and the f32
+    state read and written once at 3.35 TB/s, whichever is larger.  Per
+    step and head the function needs 5·hs² + 5·hs operations: r·S (2·hs²)
+    and S ← w·S + kᵀv (3·hs²), and the u term folded into one dot
+    product, y_j += v_j · Σ_i r_i u_i k_i (3·hs, then 2·hs)."""
+    n_ops = (5 * hs * hs + 5 * hs) * b * h * t
+    n_bytes = 5 * b * t * h * hs * elem + 2 * b * h * hs * hs * 4 \
+        + h * hs * 4
+    t_ops, t_bytes = n_ops / F32_PEAK_FLOPS, n_bytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", n_ops, n_bytes)
+
+
+def wkv6_inputs(gen, b, t, h, hs, dtype, model_like=True):
+    """r, k, v ~ N(0, 1); w the decays of the model's init range,
+    exp(-exp(U(-6, -1))) from 0.9975 down to 0.69 (model_like), or U(0.4,
+    0.9) as tests/test_wkv6_kernel.py; u ~ N(0, 0.25), one row per head;
+    s0 ~ N(0, 0.01), f32.  All made on the card from ``gen``."""
+    import torch
+    r, k, v = (torch.randn((b, t, h, hs), generator=gen, device=DEVICE)
+               for _ in range(3))
+    w = torch.rand((b, t, h, hs), generator=gen, device=DEVICE)
+    w = torch.exp(-torch.exp(w * 5 - 6)) if model_like else w * 0.5 + 0.4
+    u = torch.randn((h, hs), generator=gen, device=DEVICE) * 0.5
+    s0 = torch.randn((b, h, hs, hs), generator=gen, device=DEVICE) * 0.1
+    return [x.to(dtype) for x in (r, k, v, w)] + [u.to(dtype), s0]
+
+
+def _wkv_check(got, want, dtype, what, part) -> float:
+    """Hold one output (y or the state) of the kernel against the plain
+    version's; returns max |Δ|."""
+    import torch
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"wkv6 {what} {part}: {got.shape} {got.dtype}"
+                             f" vs {want.shape} {want.dtype}")
+    g, w = got.float(), want.float()
+    key = "float32" if part == "state" else str(dtype).split(".")[-1]
+    tol, rel_tol = WKV_TOL[key], WKV_REL_L2[key]
+    diff = (g - w).abs()
+    rms = float(w.square().mean().sqrt())
+    err = float(diff.max())
+    rel = float((g - w).norm() / w.norm())
+    emit(phase="wkv6_case", case=what, part=part, max_abs_err=err, tol=tol,
+         rel_l2=rel, rel_l2_tol=rel_tol, rms=rms,
+         worst_excess=float((diff - tol * (w.abs() + rms)).max()))
+    if not bool(torch.isfinite(g).all()) or rel > rel_tol or \
+            not bool((diff <= tol * (w.abs() + rms)).all()):
+        raise AssertionError(f"wkv6 != plain ({what}, {part}): max |Δ| "
+                             f"{err} (tolerance {tol}), relative L2 {rel} "
+                             f"(limit {rel_tol})")
+    return err
+
+
+def _must_fail(got, want, dtype, what, part):
+    try:
+        _wkv_check(got, want, dtype, "planted fault: " + what, part)
+    except AssertionError:
+        return
+    raise AssertionError(f"a planted fault ({what}) passed the wkv6 "
+                         f"limits on {part}")
+
+
+def wkv6_vs_plain(gen):
+    """The WKV6 kernel against its plain version: the four shapes of
+    tests/test_wkv6_kernel.py (JAX layout, one u), the rwkv6-1.6b prefill
+    shape in bf16 and f32 with per-head u and a nonzero s0, and a decode
+    step (T = 1) in place.  Two planted faults must fail: u dropped (y)
+    and the last step's decay skipped (the state).  Returns the largest
+    |kernel − plain|."""
+    import torch
+    from repro_torch.kernels import ref as tref
+    from repro_torch.kernels import wkv6 as twkv
+    worst = 0.0
+    for bh, t, hs in ((4, 128, 16), (2, 64, 32), (3, 96, 8), (1, 200, 16)):
+        r, k, v, w, u, s0 = wkv6_inputs(gen, 1, t, bh, hs, torch.float32,
+                                        model_like=False)
+        args = [x[0].transpose(0, 1).contiguous() for x in (r, k, v, w)]
+        args += [u[0], s0[0]]
+        y, s = twkv.wkv6(*args)
+        want_y, want_s = tref.wkv6_ref(*args)
+        what = f"jax layout BH {bh} T {t} hs {hs} f32"
+        worst = max(worst, _wkv_check(y, want_y, torch.float32, what, "y"),
+                    _wkv_check(s, want_s, torch.float32, what, "state"))
+    for dtype in (torch.bfloat16, torch.float32):
+        r, k, v, w, u, s0 = wkv6_inputs(gen, PROMPTS, PROMPT_LEN, WKV_HEADS,
+                                        WKV_HS, dtype)
+        state = s0.clone()
+        y = twkv.wkv6_heads(r, k, v, w, u, state)
+        want_y, want_s = tref.wkv6_heads_ref(r, k, v, w, u, s0)
+        what = f"rwkv6 prefill B {PROMPTS} T {PROMPT_LEN} H {WKV_HEADS} " \
+            f"hs {WKV_HS} {str(dtype)[6:]}"
+        worst = max(worst, _wkv_check(y, want_y, dtype, what, "y"),
+                    _wkv_check(state, want_s, dtype, what, "state"))
+        if dtype == torch.bfloat16:
+            no_u, _ = tref.wkv6_heads_ref(r, k, v, w, torch.zeros_like(u),
+                                          s0)
+            _must_fail(no_u, want_y, dtype, "u dropped", "y")
+            w_skip = w.clone()
+            w_skip[:, -1] = 1.0
+            _, skip_s = tref.wkv6_heads_ref(r, k, v, w_skip, u, s0)
+            _must_fail(skip_s, want_s, dtype, "last decay skipped", "state")
+        # one decode step from the prefill's state, in place
+        r1, k1, v1, w1, _, _ = wkv6_inputs(gen, PROMPTS, 1, WKV_HEADS,
+                                           WKV_HS, dtype)
+        before = state.clone()
+        y1 = twkv.wkv6_heads(r1, k1, v1, w1, u, state)
+        want_y1, want_s1 = tref.wkv6_heads_ref(r1, k1, v1, w1, u, before)
+        what = f"rwkv6 decode T 1 in place {str(dtype)[6:]}"
+        worst = max(worst, _wkv_check(y1, want_y1, dtype, what, "y"),
+                    _wkv_check(state, want_s1, dtype, what, "state"))
+    emit(phase="wkv6_vs_plain", ok=True, cases=8, max_abs_err=worst)
+    return worst
+
+
+RWKV_OUT_SCALE = 0.2  # wo and cv, from lm.init's 1/sqrt(fan-in)
+
+
+def rwkv_weights(cfg, model, seed=0):
+    """Make the random rwkv6 a fair test of its kernel.  The constant
+    leaves are drawn around their init values, so that u and the five
+    ddlerp rows all matter: mu, mu_c ~ U(0, 1); w0 ~ U(-6, -1) (decays
+    0.9975 down to 0.69); u ~ N(0, 1); ln_x ~ U(0.5, 1.5).  Two kinds of
+    matrix are scaled: the embedding to rows of unit rms (the scale that
+    RWKV's LayerNorm after the embedding gives them) and each layer's
+    output projections wo and cv by RWKV_OUT_SCALE (RWKV-6's own init
+    starts both at zero).  At lm.init's scales the 24 random layers
+    amplify rounding: y summed in another order moved the f32 logits by
+    5.24e-4 and the bf16 ones by 0.459, and the bf16 model was 0.897 from
+    its own f32 upcast, so no limit told a right kernel from a wrong
+    one."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.no_grad():
+        model.embed.mul_(cfg.d_model ** 0.5)
+        for blk in model.blocks:
+            p = blk.rwkv
+            p.mu.uniform_(0.0, 1.0, generator=gen)
+            p.mu_c.uniform_(0.0, 1.0, generator=gen)
+            p.w0.uniform_(-6.0, -1.0, generator=gen)
+            p.u.normal_(0.0, 1.0, generator=gen)
+            p.ln_x.uniform_(0.5, 1.5, generator=gen)
+            p.wo.mul_(RWKV_OUT_SCALE)
+            p.cv.mul_(RWKV_OUT_SCALE)
+
+
+def _plain_wkv6(r, k, v, w, u, state):
+    from repro_torch.kernels import ref
+    y, s = ref.wkv6_heads_ref(r, k, v, w, u, state)
+    state.copy_(s)
+    return y
+
+
+def _no_u_wkv6(r, k, v, w, u, state):
+    """A planted fault: the kernel with u dropped."""
+    import torch
+    from repro_torch.kernels import wkv6 as twkv
+    return twkv.wkv6_heads(r, k, v, w, torch.zeros_like(u), state)
+
+
+def _einsum_order_wkv6(r, k, v, w, u, state):
+    """The recurrence with y summed by ``torch.einsum``, in cuBLAS's order
+    (as the JAX package's references sum it in XLA's): what a right
+    kernel that sums in another order would give, which the logit limit
+    must pass."""
+    import torch
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    s = state.clone()
+    ys = []
+    for t in range(r.shape[1]):
+        a = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], s + uf * a))
+        s = wf[:, t, :, :, None] * s + a
+    state.copy_(s)
+    return torch.stack(ys, dim=1).to(r.dtype)
+
+
+def check_rwkv_logits(cfg, model, toks):
+    """One wave's prefill logits with the kernel against the same model
+    with the plain WKV6: the served bf16 model, and its weights upcast to
+    f32.  Beside each, y summed in another order, which must read under
+    the limit, and a dropped u in every layer, which must read above it;
+    then the bf16 model's own distance from its f32 upcast."""
+    import copy
+    import torch
+    from repro_torch.models import lm
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    m32 = copy.deepcopy(model).float()
+    plain = {}
+    for dt, m in (("bfloat16", model), ("float32", m32)):
+        got, _ = lm.prefill(cfg, m, toks, cache_len=PROMPT_LEN)
+        with ops_swapped("wkv6", _plain_wkv6):
+            want, _ = lm.prefill(cfg, m, toks, cache_len=PROMPT_LEN)
+        with ops_swapped("wkv6", _no_u_wkv6):
+            bad, _ = lm.prefill(cfg, m, toks, cache_len=PROMPT_LEN)
+        with ops_swapped("wkv6", _einsum_order_wkv6):
+            other, _ = lm.prefill(cfg, m, toks, cache_len=PROMPT_LEN)
+        plain[dt] = want
+        err, fault = rel(got, want), rel(bad, want)
+        sound = rel(other, want)
+        finite = bool(torch.isfinite(got).all())
+        emit(phase="rwkv_logits", dtype=dt, rel_l2=err,
+             tol=RWKV_LOGIT_REL_TOL[dt], dropped_u_rel_l2=fault,
+             other_sum_order_rel_l2=sound,
+             max_abs=float((got.float() - want.float()).abs().max()),
+             max_ref=float(want.float().abs().max()),
+             top1_agree=float((got.argmax(-1) == want.argmax(-1))
+                              .float().mean()), finite=finite)
+        if not finite or err > RWKV_LOGIT_REL_TOL[dt]:
+            raise AssertionError(f"{dt} prefill logits off the plain WKV6: "
+                                 f"{err}")
+        if fault <= RWKV_LOGIT_REL_TOL[dt]:
+            raise AssertionError(f"{dt}: a dropped u ({fault}) passes the "
+                                 f"logit limit")
+        if sound > RWKV_LOGIT_REL_TOL[dt]:
+            raise AssertionError(f"{dt}: y summed in another order ({sound})"
+                                 f" fails the logit limit")
+    emit(phase="rwkv_logits_bf16_vs_f32",
+         rel_l2=rel(plain["bfloat16"], plain["float32"]))
+    del m32
+    torch.cuda.empty_cache()
+
+
+def rwkv_path():
+    """Serve rwkv6-1.6b at full width and depth: static generate and
+    ServeLoop with every prefill and every decode step of every layer
+    through the kernel, then the logit gate and the serving metrics."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wkv6 as twkv
+    from repro_torch.models import lm
+
+    cfg = get_config(RWKV_ARCH)
+    if LM_REDUCED:
+        cfg = cfg.reduced()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                    device=DEVICE)
+    rwkv_weights(cfg, model)
+    torch.cuda.synchronize()
+    emit(phase="rwkv_init", arch=cfg.name,
+         params=sum(p.numel() for p in model.parameters()),
+         param_count=cfg.param_count(),
+         weight_gb=sum(p.numel() * p.element_size()
+                       for p in model.parameters()) / 1e9,
+         seconds=time.perf_counter() - t0)
+
+    prompts, launches, prefills, decode_steps = serve_traffic(
+        cfg, model, twkv.launch_counts, twkv.reset_launch_counts,
+        "rwkv_main_path")
+    want = cfg.num_layers * (prefills + decode_steps)
+    if launches["wkv6"] != want:
+        raise AssertionError(
+            f"wkv6 launched {launches['wkv6']} times, expected "
+            f"{cfg.num_layers} x ({prefills} prefills + {decode_steps} "
+            f"decode steps) = {want}")
+
+    toks = torch.as_tensor(prompts[:PROMPTS], dtype=torch.long,
+                           device=DEVICE)
+    check_rwkv_logits(cfg, model, toks)
+    rec = serving_metrics(cfg, model, toks, twkv.launch_counts,
+                          "rwkv_serving")
+    return launches, rec
+
+
+def time_wkv6(gen, errs_max, launches):
+    """The kernel at the rwkv6-1.6b prefill shape (B 4, T 1024, H 32, hs
+    64, bf16) and at a decode step (T 1): its time (CUDA events around a
+    call, median of 20; and the kernel's own device time from the
+    profiler, which at a decode step is far less), its bound and the
+    plain version's time.  No single PyTorch call computes WKV6, so
+    there is no library time."""
+    import torch
+    from repro_torch.kernels import ref as tref
+    from repro_torch.kernels import wkv6 as twkv
+    out = {}
+    for t in (PROMPT_LEN, 1):
+        r, k, v, w, u, s0 = wkv6_inputs(gen, PROMPTS, t, WKV_HEADS, WKV_HS,
+                                        torch.bfloat16)
+        u = u.float()  # the wrapper's cast to f32 is then no launch
+        ms = cuda_ms(lambda: twkv.wkv6_heads(r, k, v, w, u, s0), reps=20)
+        plain = cuda_ms(lambda: tref.wkv6_heads_ref(r, k, v, w, u, s0),
+                        reps=3 if t > 1 else 20, warmup=1)
+        device_ms = kernel_device_ms(
+            lambda: twkv.wkv6_heads(r, k, v, w, u, s0), "wkv6_kernel")
+        bound_ms, bound_by, n_ops, n_bytes = wkv6_bound(
+            PROMPTS, t, WKV_HEADS, WKV_HS, 2)
+        out[t] = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                      bound_by=bound_by)
+        emit(phase="time", kernel="wkv6",
+             shape=[PROMPTS, t, WKV_HEADS, WKV_HS], dtype="bfloat16",
+             ms=ms, device_ms=device_ms, plain_ms=plain, library_ms=None,
+             bound_ms=bound_ms,
+             bound_by=bound_by, flops=n_ops, bytes=n_bytes,
+             gflops=n_ops / ms / 1e6)
+    r = out[PROMPT_LEN]
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6.py:70",
+            "launches": launches["wkv6"], "max_abs_err": errs_max,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None}
+
+
 def build_all():
-    """Both libraries, one nvcc each, started together."""
+    """The three libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import bsr_spmv as tk
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6 as twkv
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        futs = {m.LIBRARY.name: ex.submit(m.build) for m in (tk, fa)}
+    with ThreadPoolExecutor(3) as ex:
+        futs = {m.LIBRARY.name: ex.submit(m.build) for m in (tk, fa, twkv)}
         libs = {name: f.result() for name, f in futs.items()}
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries=[p.name for p in libs.values()])
@@ -1015,12 +1436,28 @@ def graph_phases():
 def lm_phases():
     """Slice 2: flash attention against its plain version, granite-3-2b
     served at full width, the kernel's times; returns its kernels line
-    entry."""
+    entry.  Frees the model before returning."""
+    import gc
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     attn_err = attention_vs_plain(gen)
-    launches, _ = lm_path(gen)
-    return [time_attention(gen, attn_err, launches)]
+    launches, _ = lm_path()
+    kernels = [time_attention(gen, attn_err, launches)]
+    gc.collect()
+    torch.cuda.empty_cache()  # granite's weights, before the RWKV phases
+    emit(phase="lm_freed", device_gb=torch.cuda.memory_allocated() / 1e9)
+    return kernels
+
+
+def rwkv_phases():
+    """Slice 3: the WKV6 kernel against its plain version, rwkv6-1.6b
+    served at full width and depth, the kernel's times; returns its
+    kernels line entry."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    err = wkv6_vs_plain(gen)
+    launches, _ = rwkv_path()
+    return [time_wkv6(gen, err, launches)]
 
 
 def setup():
@@ -1045,12 +1482,13 @@ def main() -> int:
         return 2
     import repro_torch  # noqa: F401  (the port, not JAX; fails outside)
     setup()
-    # 2. build; 3.-5. the graph engine; 6.-8. LM serving
+    # 2. build; 3.-5. the graph engine; 6.-8. LM serving; 9.-11. RWKV
     build_all()
     kernels = graph_phases()
     kernels += lm_phases()
+    kernels += rwkv_phases()
 
-    # 9. the card, the kernels line, and the result
+    # 12. the card, the kernels line, and the result
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

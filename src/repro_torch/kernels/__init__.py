@@ -1,8 +1,13 @@
-# Hand-written CUDA kernels for the graph engine's hot loop:
-#   csrc/bsr_spmv.cu — block-sparse semiring SpMV + the fused
-#                      frontier-masked sweep (sm_90a)
-#   bsr_spmv.py      — build at first use, ctypes binding, checked
-#                      wrappers, launch counters
-#   ops.py           — select_kernel registry (device-keyed dispatch)
-#   ref.py           — the plain torch versions
-#   spec.py          — KernelSpec
+# Hand-written CUDA kernels (sm_90a), one library per source:
+#   csrc/bsr_spmv.cu        — block-sparse semiring SpMV + the fused
+#                             frontier-masked sweep (graph engine)
+#   csrc/flash_attention.cu — causal/windowed flash attention (LM prefill)
+#   csrc/wkv6.cu            — the RWKV-6 WKV recurrence (prefill, decode)
+#   bsr_spmv.py, flash_attention.py, wkv6.py
+#                           — build at first use, ctypes binding, checked
+#                             wrappers, launch counters
+#   cuda_lib.py             — nvcc build + ctypes helper, device rule
+#   ops.py                  — select_kernel registry, attention(), wkv6()
+#                             (device-keyed dispatch)
+#   ref.py                  — the plain torch versions
+#   spec.py                 — KernelSpec

@@ -20,6 +20,12 @@ decides by the device of the tensors it is given:
     as the JAX package computes them in XLA outside any kernel.  The JAX
     package's ``impl`` switch has no counterpart: its serving path passes
     ``impl="ref"``, and the port runs the kernel there all the same.
+  * The WKV6 recurrence is not in the registry either: ``wkv6()`` below
+    keys on the device alone and launches the hand-written kernel
+    (``wkv6.wkv6_heads``) for every CUDA call, prefill and decode step
+    alike.  The JAX package's model runs its ``_wkv_scan`` in XLA and
+    never its Pallas kernel; the port's model runs the kernel, which
+    computes the same recurrence, head by head.
 
 Nothing else reaches the plain versions on the card, and a failed build
 or launch raises: there is no fallback.
@@ -39,6 +45,7 @@ from __future__ import annotations
 from . import bsr_spmv as _cuda
 from . import flash_attention as _flash
 from . import ref as _ref
+from . import wkv6 as _wkv6
 from .. import resilience
 from ..core.semiring import BUILTIN
 from .spec import KernelSpec, as_kernel_spec
@@ -120,3 +127,10 @@ def attention(q, k, v, causal=True, window=None, scale=None):
     if s == k.shape[2] and s > 1 and v.shape[-1] == d:
         return _flash.flash_attention(q, k, v, causal, window, scale)
     return _ref.attention_ref(q, k, v, causal, window, scale)
+
+
+def wkv6(r, k, v, w, u, state):
+    """The RWKV-6 recurrence: r, k, v, w (B, T, H, hs), u (H, hs), the
+    f32 state (B, H, hs, hs) updated in place; returns y (B, T, H, hs) in
+    r's dtype (``wkv6.wkv6_heads``)."""
+    return _wkv6.wkv6_heads(r, k, v, w, u, state)

@@ -2,10 +2,11 @@
 
 They are the ground truth the CUDA kernels are held against on the card
 (``chip_smoke.py``, the card-only tests), and the path the wrappers in
-``kernels/bsr_spmv.py`` and ``kernels/flash_attention.py`` take for
-tensors that lie on the CPU.  Registered custom semirings run here on
-every device, and so do the attention shapes the flash kernel does not
-take (S != Skv, such as a decode step; D_v != D).
+``kernels/bsr_spmv.py``, ``kernels/flash_attention.py`` and
+``kernels/wkv6.py`` take for tensors that lie on the CPU.  Registered
+custom semirings run here on every device, and so do the attention
+shapes the flash kernel does not take (S != Skv, such as a decode step;
+D_v != D).
 
 The SpMV versions take the query axis written out: ``x`` is (Q, C, B) —
 or (C, B) for one query, in which case the query axis is dropped from the
@@ -195,3 +196,50 @@ def attention_ref(q, k, v, causal: bool = True,
     if q.shape[2] >= CHUNKED_THRESHOLD:
         return mha_chunked(q, k, v, causal, window, scale)
     return mha_ref(q, k, v, causal, window, scale)
+
+
+# ---------------------------------------------------------------------------
+# WKV6 — the RWKV-6 recurrence, the plain version of the wkv6 kernel
+# ---------------------------------------------------------------------------
+
+
+def wkv6_heads_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
+    """The recurrence in the model's layout, one Python step per token.
+
+    r, k, v, w: (B, T, H, hs), any float dtype (upcast to f32); u (H, hs);
+    s0 (B, H, hs, hs), keyed [k dim, v dim].  Per step, in f32:
+    a = kᵀv, y = r (S + u ⊙ a), S ← diag(w) S + a.  Returns (y (B, T, H,
+    hs) in r's dtype, the final state (B, H, hs, hs) f32); ``s0`` is not
+    written.
+
+    The arithmetic is the CUDA kernel's, in its order: every product and
+    sum rounded once, S + u·a kept for each step, then y's sum over the
+    k dim taken in ascending order from 0.  So the kernel and this
+    version agree bit for bit; the JAX package's ``wkv6_ref`` sums y in
+    XLA's order (atol 1e-4 at the shapes of its tests).  The kept terms
+    take T·B·H·hs² floats (2.1 GB at B 4, T 1024, H 32, hs 64)."""
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    s = s0.float()
+    b, n, h, hs = r.shape
+    terms = rf.new_empty((n, b, h, hs, hs))
+    for t in range(n):
+        a = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        torch.add(s, uf * a, out=terms[t])
+        s = wf[:, t, :, :, None] * s + a
+    rt = rf.transpose(0, 1)                    # (T, B, H, hs)
+    y = rf.new_zeros((n, b, h, hs))
+    for i in range(hs):
+        y = y + rt[..., i, None] * terms[..., i, :]
+    return y.transpose(0, 1).to(r.dtype), s
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
+    """The JAX package's layout and ``wkv6_ref``: r, k, v, w (BH, T, hs);
+    u (hs,) shared by every row; s0 (BH, hs, hs).  Returns (y (BH, T, hs)
+    in r's dtype, s_final (BH, hs, hs) f32)."""
+    y, s = wkv6_heads_ref(r[:, :, None], k[:, :, None], v[:, :, None],
+                          w[:, :, None], u[None], s0[:, None])
+    return y[:, :, 0], s[:, 0]

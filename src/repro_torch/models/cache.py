@@ -1,8 +1,11 @@
-"""Decode-state containers: the KV cache of the GQA attention block.
+"""Decode-state containers: the KV cache of the GQA attention block and
+the recurrent state of the RWKV-6 block.
 
-The JAX package's ``models/cache.py`` for block kind ``attn``.  The other
-caches (ring-buffered local attention, MLA latent, cross-attention, RWKV
-and RG-LRU states) come with their blocks (``ROADMAP.md``).
+The JAX package's ``models/cache.py`` for block kinds ``attn`` and
+``rwkv``.  The other caches (ring-buffered local attention, MLA latent,
+cross-attention, RG-LRU state) come with their blocks (``ROADMAP.md``).
+Each leaf has its own dtype: the KV cache takes the caller's, the RWKV
+state is f32 whatever the caller passes, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -10,18 +13,21 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from . import rwkv
 
-PORTED_KINDS = ("attn",)
+PORTED_KINDS = ("attn", "rwkv")
 
 
 def check_ported(cfg: ModelConfig, kind: str) -> None:
     """Raise ``NotImplementedError`` naming ROADMAP.md for a block kind,
-    attention kind or position embedding the port does not build yet."""
+    or the attention kind or position embedding of an attention block,
+    that the port does not build yet."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (ROADMAP.md, queue 1 "
             f"item 10); the port builds {PORTED_KINDS}")
-    if cfg.attn_kind != "gqa" or cfg.pos_embedding == "learned":
+    if kind == "attn" and (cfg.attn_kind != "gqa"
+                           or cfg.pos_embedding == "learned"):
         raise NotImplementedError(
             f"attention {cfg.attn_kind!r} with {cfg.pos_embedding!r} "
             "positions is not ported yet (ROADMAP.md, queue 1 item 10)")
@@ -42,9 +48,13 @@ def attn_cache_axes():
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int,
                      cache_len: int, dtype=torch.bfloat16, device=None):
     check_ported(cfg, kind)
+    if kind == "rwkv":
+        return rwkv.rwkv_state_init(cfg, batch, device)
     return attn_cache_init(cfg, batch, cache_len, dtype, device)
 
 
 def block_cache_axes(cfg: ModelConfig, kind: str):
     check_ported(cfg, kind)
+    if kind == "rwkv":
+        return rwkv.rwkv_state_axes()
     return attn_cache_axes()

@@ -4,9 +4,11 @@ The JAX package's ``lm.init`` returns a tree whose superblock leaves are
 stacked on a leading ``stack`` axis (``p["blocks"]["b{j}"]``, one entry
 per repeat) and whose remainder layers are separate (``p["rem"]``).
 ``params_from_jax`` takes that tree as numpy arrays and returns the
-port's ``LM``, which then computes what the JAX model computes:
-matrices cast once to the compute dtype (the JAX package casts them at
-every use), norm scales kept in f32.  ``params_to_jax`` is its inverse.
+port's ``LM``, which then computes what the JAX model computes: each
+leaf is cast once to the dtype of its port parameter, so matrices to the
+compute dtype (the JAX package casts them at every use) and norm scales,
+the RWKV block's f32 leaves and its ``dec_b`` kept in f32.
+``params_to_jax`` is its inverse.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ _BLOCK_LEAVES = {
     "attn.wv": ("attn", "wv"), "attn.wo": ("attn", "wo"),
     "mlp.wi": ("mlp", "wi"), "mlp.wg": ("mlp", "wg"),
     "mlp.wo": ("mlp", "wo"),
+    **{f"rwkv.{n}": ("rwkv", n) for n in (
+        "mu", "ddl_a", "ddl_b", "wr", "wk", "wv", "wg", "wo", "w0",
+        "dec_a", "dec_b", "u", "ln_x", "mu_c", "ck", "cr", "cv")},
 }
 _TOP_LEAVES = {"embed": ("embed",), "head": ("head",),
                "ln_f.scale": ("ln_f", "scale"),

@@ -1,11 +1,12 @@
 """The decoder stack: init, forward, prefill and one-token decode.
 
 The JAX package's ``models/lm.py`` in PyTorch for the dense GQA families
-(block kind ``attn``: granite-3-2b, chatglm3-6b, nemotron-4-340b).  The
-other block kinds (``moe``, ``rwkv``, ``recurrent``, ``local_attn``,
-``cross_attn``, ``decoder``), MLA, learned positions and the encoder are
-not ported yet: building a config that needs them raises
-``NotImplementedError`` naming ``ROADMAP.md``.
+(block kind ``attn``: granite-3-2b, chatglm3-6b, nemotron-4-340b) and
+RWKV-6 (block kind ``rwkv``: rwkv6-1.6b).  The other block kinds
+(``moe``, ``recurrent``, ``local_attn``, ``cross_attn``, ``decoder``),
+MLA, learned positions and the encoder are not ported yet: building a
+config that needs them raises ``NotImplementedError`` naming
+``ROADMAP.md``.
 
 The JAX package stacks each superblock position's layers on a leading
 axis and ``lax.scan``s over it; here ``LM.blocks`` holds every layer in
@@ -32,7 +33,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
 from . import cache as cache_lib
-from . import layers
+from . import layers, rwkv
 
 
 def layer_slots(cfg: ModelConfig) -> List[Tuple[str, str, Optional[int]]]:
@@ -46,22 +47,36 @@ def layer_slots(cfg: ModelConfig) -> List[Tuple[str, str, Optional[int]]]:
     return slots
 
 
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """The block kind of every layer, in ``layer_slots`` order."""
+    return (list(cfg.block_pattern) * cfg.pattern_repeats
+            + list(cfg.remainder_layers))
+
+
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    """``attn``: ln1, attn, ln2, mlp.  ``rwkv``: ln1, rwkv, ln2."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, device=None):
         super().__init__()
+        self.kind = kind
         self.ln1 = layers.norm_init(cfg, device=device)
-        self.attn = layers.attn_init(cfg, device=device)
-        self.ln2 = layers.norm_init(cfg, device=device)
-        self.mlp = layers.mlp_init(cfg, device=device)
+        if kind == "rwkv":
+            self.rwkv = rwkv.RWKV(cfg, device=device)
+            self.ln2 = layers.norm_init(cfg, device=device)
+        else:
+            self.attn = layers.attn_init(cfg, device=device)
+            self.ln2 = layers.norm_init(cfg, device=device)
+            self.mlp = layers.mlp_init(cfg, device=device)
 
 
 class LM(nn.Module):
     """embed (V, d), head (d, V) unless tied, ln_f, and one ``Block`` per
-    layer.  Matrices in ``cfg.compute_dtype``, norm scales in f32."""
+    layer.  Matrices in ``cfg.compute_dtype``, norm scales and the RWKV
+    block's f32 leaves in f32."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        for kind in cfg.block_pattern:
+        for kind in dict.fromkeys(layer_kinds(cfg)):
             cache_lib.check_ported(cfg, kind)
         self.cfg = cfg
         self.embed = layers._weight((cfg.vocab_size, cfg.d_model), cfg,
@@ -70,8 +85,8 @@ class LM(nn.Module):
             self.head = layers._weight((cfg.d_model, cfg.vocab_size), cfg,
                                        device)
         self.ln_f = layers.norm_init(cfg, device=device)
-        self.blocks = nn.ModuleList(Block(cfg, device)
-                                    for _ in layer_slots(cfg))
+        self.blocks = nn.ModuleList(Block(cfg, kind, device)
+                                    for kind in layer_kinds(cfg))
 
 
 def _fill(w: nn.Parameter, fan_in: int, gen: torch.Generator) -> None:
@@ -96,6 +111,9 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings:
         _fill(model.head, d, gen)
     for blk in model.blocks:
+        if blk.kind == "rwkv":
+            _fill_rwkv(cfg, blk.rwkv, gen)
+            continue
         for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.mlp.wi):
             _fill(w, d, gen)
         _fill(blk.attn.wo, cfg.num_heads * hd, gen)
@@ -105,13 +123,41 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return model
 
 
+def _fill_rwkv(cfg: ModelConfig, p: rwkv.RWKV, gen) -> None:
+    """The matrices with the JAX ``rwkv_init``'s fan-ins; the constant
+    leaves keep the values ``rwkv.RWKV`` gave them."""
+    d = cfg.d_model
+    for w in (p.ddl_a, p.wr, p.wk, p.wv, p.wg, p.wo, p.dec_a, p.ck, p.cr):
+        _fill(w, d, gen)
+    _fill(p.ddl_b, cfg.ddlerp_rank, gen)
+    _fill(p.dec_b, cfg.decay_rank, gen)
+    _fill(p.cv, cfg.d_ff, gen)
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
 
 
+def _rwkv_block(cfg: ModelConfig, p: Block, x, c):
+    """Time mix and channel mix from the state ``c`` ({"wkv", "tm_x",
+    "cm_x"}, f32), which is updated in place.  Returns (x, c)."""
+    h = layers.norm_apply(cfg, p.ln1, x)
+    tm, after = rwkv.rwkv_block_apply(cfg, p.rwkv, h, c)
+    x = x + tm
+    h2 = layers.norm_apply(cfg, p.ln2, x)
+    cm, cm_x = rwkv.rwkv_channel_mix(cfg, p.rwkv, h2, c["cm_x"])
+    c["tm_x"].copy_(after["tm_x"])
+    c["cm_x"].copy_(cm_x)
+    return x + cm, c
+
+
 def block_apply(cfg: ModelConfig, p: Block, x, *, positions):
-    """Full-sequence forward of one block."""
+    """Full-sequence forward of one block (an RWKV block starts from the
+    zero state, as in the JAX package)."""
+    if p.kind == "rwkv":
+        state = rwkv.rwkv_state_init(cfg, x.shape[0], device=x.device)
+        return _rwkv_block(cfg, p, x, state)[0]
     h = layers.norm_apply(cfg, p.ln1, x)
     x = x + layers.attn_apply(cfg, p.attn, h, positions=positions)
     h2 = layers.norm_apply(cfg, p.ln2, x)
@@ -119,7 +165,11 @@ def block_apply(cfg: ModelConfig, p: Block, x, *, positions):
 
 
 def block_prefill(cfg: ModelConfig, p: Block, x, *, positions, cache):
-    """Forward + this block's decode cache, written into ``cache``."""
+    """Forward + this block's decode cache, written into ``cache`` (an
+    RWKV block's starts as zeros: its prefill starts from the zero
+    state)."""
+    if p.kind == "rwkv":
+        return _rwkv_block(cfg, p, x, cache)
     h = layers.norm_apply(cfg, p.ln1, x)
     att, c = layers.attn_prefill(cfg, p.attn, h, positions=positions,
                                  cache=cache)
@@ -130,6 +180,8 @@ def block_prefill(cfg: ModelConfig, p: Block, x, *, positions, cache):
 
 def block_decode(cfg: ModelConfig, p: Block, x, c, *, pos):
     """One-token step; updates ``c`` in place.  Returns (x, c)."""
+    if p.kind == "rwkv":
+        return _rwkv_block(cfg, p, x, c)
     h = layers.norm_apply(cfg, p.ln1, x)
     att, c = layers.attn_decode(cfg, p.attn, h, c, pos=pos)
     x = x + att
@@ -173,14 +225,15 @@ def forward(cfg: ModelConfig, model: LM,
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device=None) -> Dict:
     """The JAX package's cache tree, each ``blocks`` leaf stacked on a
-    leading layer axis."""
+    leading layer axis.  ``dtype`` is the KV cache's; each leaf keeps the
+    dtype ``block_cache_init`` gives it, so the RWKV state stays f32."""
     device = resolve_device(device)
 
     def zeros(kind, stack):
         one = cache_lib.block_cache_init(cfg, kind, batch, cache_len,
                                          dtype, device="meta")
-        return {n: torch.zeros(stack + t.shape, dtype=dtype, device=device)
-                for n, t in one.items()}
+        return {n: torch.zeros(stack + t.shape, dtype=t.dtype,
+                               device=device) for n, t in one.items()}
 
     c = {"blocks": {f"b{j}": zeros(kind, (cfg.pattern_repeats,))
                     for j, kind in enumerate(cfg.block_pattern)}}
@@ -213,8 +266,8 @@ def layer_caches(cfg: ModelConfig, cache: Dict) -> List[Dict]:
 @torch.no_grad()
 def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
             cache_len: int):
-    """tokens (B, S) → (last-token logits (B, V), cache padded to
-    cache_len, in the compute dtype)."""
+    """tokens (B, S) → (last-token logits (B, V), cache: the KV cache
+    padded to cache_len in the compute dtype, the RWKV state in f32)."""
     b, s = tokens.shape
     x = _embed(cfg, model, tokens)
     positions = _positions(tokens)

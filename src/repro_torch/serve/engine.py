@@ -9,7 +9,11 @@ cache leaf's "batch" dimension comes from the cache's logical axes
 (``lm.cache_axes``), so slot surgery follows the cache tree.
 
 Both run on the device of the model's weights.  On CUDA every prefill
-goes through the hand-written flash-attention kernel, in each layer.
+of a GQA model goes through the hand-written flash-attention kernel, in
+each layer; an RWKV-6 model runs the hand-written WKV6 kernel in each
+layer of every prefill and every decode step.  Its state, unlike a KV
+cache, is f32 whatever the cache dtype: slot surgery copies it without
+rounding.
 Temperature sampling draws from an explicit ``torch.Generator``; it
 cannot reproduce ``jax.random``'s draws.  The frontend stubs of the
 vision and audio families (``extras``) are not ported, since those
