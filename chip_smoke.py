@@ -12,7 +12,9 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      TF32 off for matmuls and cuDNN;
   2. build the CUDA libraries from ``src/repro_torch/kernels/csrc`` (one
      nvcc per source, started together; sm_90a) and print the build time
-     and ptxas's register report;
+     and ptxas's register report; the tensor-core attention library must
+     show 0 spill bytes, no "wgmma ... serialized" warning and HGMMA
+     instructions in its SASS (``cuobjdump -sass``);
   3. each SpMV kernel against its plain torch version on the card: the
      CA stand-in at scale 0.02 for the 4 semirings × B ∈ {16, 32}, the
      fused kernel over 5 update rules × {empty, sparse, dense} frontiers
@@ -28,24 +30,31 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      plus_times, ``torch.sparse_csr_tensor`` @ x as a yardstick;
      then the graph plans are freed;
   6. flash attention against its plain version (mha_ref; mha_chunked for
-     the long case): the granite prefill shape (B 4, H 32, Hkv 8, S 1024,
-     D 64, causal) in bf16 and f32, ragged non-causal S = 100, windows,
-     D = 128, and B 1 x H 32 x S 16384 causal; each case within an
-     elementwise and a relative-L2 limit, and a planted fault (one key
-     tile dropped) must break both;
+     the long case), each case on the kernel ``flash_attention.route``
+     gives it (bf16 at D 64 and 128: tensor cores; f32 and bf16 at other
+     head dims: CUDA cores): the granite prefill shape (B 4, H 32, Hkv 8,
+     S 1024, D 64, causal) in bf16 and f32, ragged non-causal S = 100,
+     windows, D = 128, GQA group 32, the model's (B, S, H, D) memory,
+     D = 32, and B 1 x H 32 x S 16384 causal (with its device time beside
+     SDPA's); each case within an elementwise and a relative-L2 limit,
+     and a planted fault (one key tile dropped) must break both at D 64
+     and D 128;
   7. LM serving: granite-3-2b (40 layers, d_model 2048, 2.53 B
      parameters, random weights from seed 0, bf16) through ``generate``
      (4 prompts x 1024 tokens, 32 new) and ``ServeLoop`` (4 slots, 8 such
      requests); the first wave's tokens equal the static batch's, and
-     ``launch_counts["flash_attention"]`` is 40 x the prefills; one
+     ``launch_counts["flash_attention"]`` and its tensor-core count are
+     40 x the prefills; one
      wave's prefill logits against the same model with mha_ref, beside
      the distance a dropped key tile in every layer gives; prefill
      tokens/s, time to first token, decode ms/step and tokens/s, the
      device idle share over decode steps;
-  8. flash attention's time at the granite prefill shape, its bound
+  8. flash attention's times at the granite prefill shape and a
+     chatglm3-like one (Hkv 2, D 128) in bf16, and at granite's in f32:
+     the call (CUDA events) and the device time (profiler), the bound
      (operations at the bf16 tensor-core peak), the plain version's time
-     and ``scaled_dot_product_attention``'s as the yardstick; then
-     granite's weights are freed;
+     and ``scaled_dot_product_attention``'s call and device times as the
+     yardstick; then granite's weights are freed;
   9. the WKV6 kernel against its plain version: the four shapes of
      tests/test_wkv6_kernel.py, the rwkv6-1.6b prefill shape (B 4, T
      1024, H 32, hs 64) in bf16 and f32 with per-head u and a nonzero
@@ -405,27 +414,31 @@ def device_busy(events):
              for e in top])
 
 
-def kernel_device_ms(fn, name, reps=20):
-    """Device time of one launch of the kernel whose name holds ``name``,
-    from torch.profiler over ``reps`` calls of ``fn``: the host's share
-    of a call, which CUDA events around a small call also count, is left
-    out.  "not measured" when the profiler records no such kernel."""
+def kernel_device_ms(fn, name="", reps=20, warmup=5):
+    """Device time of one call of ``fn``, from torch.profiler over
+    ``reps`` calls: for each kernel, copy or set the call puts on the card
+    whose name holds ``name``, its mean device time per launch times its
+    launches per call.  The host's share of a call, which CUDA events
+    around a small call also count, is left out.  The first ``warmup``
+    calls run under the profiler but are not kept: it misses launches
+    right after it starts.  "not measured" when it records none."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=reps,
+                                   repeat=1)) as prof:
+        for _ in range(warmup + reps):
             fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and name in e.key]
+            torch.cuda.synchronize()
+            prof.step()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False) and e.count
+           and name in e.key]
     if not evs:
         return "not measured"
-    return (sum(e.self_device_time_total for e in evs)
-            / sum(e.count for e in evs) / 1e3)
+    return sum(e.self_device_time_total / e.count * max(1, round(
+        e.count / reps)) for e in evs) / 1e3
 
 
 def device_share(name, fn):
@@ -655,21 +668,39 @@ def attention_bound(b, h, hkv, s, d, dtype, causal, window):
             "operations" if t_ops >= t_bytes else "bytes", ops_, nbytes)
 
 
-def _qkv(gen, b, h, hkv, s, d, dtype):
+def _qkv(gen, b, h, hkv, s, d, dtype, model_layout=False):
+    """Random q, k, v (B, H, S, D); with ``model_layout`` their memory is
+    (B, S, H, D), as the model passes them, seen through transpose(1, 2)."""
     import torch
-    return [torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
-            for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+    if model_layout:
+        return [torch.randn((b, s, n, d), generator=gen, device=DEVICE)
+                .to(dtype).transpose(1, 2) for n in (h, hkv, hkv)]
+    return [torch.randn((b, n, s, d), generator=gen, device=DEVICE)
+            .to(dtype) for n in (h, hkv, hkv)]
+
+
+def _planted_fault(q, k, v, want, causal, window, what):
+    """The limits must catch a dropped key tile at this case's shape."""
+    bad = dropped_tile_attention(q, k, v, causal, window)
+    try:
+        _attn_check(bad, want, q.dtype, f"planted fault: key tile 1 "
+                    f"dropped ({what})", "plain")
+    except AssertionError:
+        return
+    raise AssertionError(f"a dropped key tile passed the attention limits "
+                         f"({what})")
 
 
 def attention_vs_plain(gen):
-    """The flash kernel against its plain version at the serving shapes;
-    returns the largest |kernel − plain|."""
+    """The flash kernels against their plain version at the serving shapes,
+    each case on the route ``flash_attention.route`` gives it; returns the
+    largest |kernel − plain|."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref as tref
     bf16, f32 = torch.bfloat16, torch.float32
     s = PROMPT_LEN
-    cases = [  # name, B, H, Hkv, S, D, dtype, causal, window
+    cases = [  # name, B, H, Hkv, S, D, dtype, causal, window[, layout]
         ("granite prefill bf16", PROMPTS, 32, 8, s, 64, bf16, True, None),
         ("granite prefill f32", PROMPTS, 32, 8, s, 64, f32, True, None),
         ("ragged S=100 full bf16", 2, 32, 8, 100, 64, bf16, False, None),
@@ -678,39 +709,64 @@ def attention_vs_plain(gen):
         ("window 200 full f32", 1, 8, 2, 1000, 64, f32, False, 200),
         ("D=128 chatglm3 bf16", 1, 32, 2, s, 128, bf16, True, None),
         ("D=128 ragged f32", 1, 8, 2, 777, 128, f32, True, None),
+        # tensor-core cases
+        ("D=128 window 256 bf16", 1, 32, 2, s, 128, bf16, True, 256),
+        ("D=128 ragged S=777 full bf16", 1, 8, 2, 777, 128, bf16, False,
+         None),
+        ("D=64 Hkv=1 (group 32) bf16", 1, 32, 1, s, 64, bf16, True, None),
+        ("D=64 S=100 full Hkv=1 bf16", 1, 32, 1, 100, 64, bf16, False,
+         None),
+        ("granite prefill, model layout (B,S,H,D) bf16", PROMPTS, 32, 8, s,
+         64, bf16, True, None, True),
+        # the CUDA-core kernel's bf16 route
+        ("D=32 bf16", 1, 8, 2, 512, 32, bf16, True, None),
     ]
+    fault_at = ("granite prefill bf16", "D=128 chatglm3 bf16")
     worst = 0.0
-    for name, b, h, hkv, sl, d, dt, causal, window in cases:
-        q, k, v = _qkv(gen, b, h, hkv, sl, d, dt)
+    for name, b, h, hkv, sl, d, dt, causal, window, *layout in cases:
+        q, k, v = _qkv(gen, b, h, hkv, sl, d, dt, model_layout=bool(layout))
+        path = fa.route(dt, d)
+        before = dict(fa.launch_counts)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        if fa.launch_counts["flash_attention_" + path] != \
+                before["flash_attention_" + path] + 1:
+            raise AssertionError(f"{name}: not launched on {path}")
         want = tref.attention_ref(q, k, v, causal=causal, window=window)
-        worst = max(worst, _attn_check(got, want, dt, name))
-        if name == "granite prefill bf16":  # the limits catch a fault
-            bad = dropped_tile_attention(q, k, v, causal, window)
-            try:
-                _attn_check(bad, want, dt, "planted fault: key tile 1 "
-                            "dropped")
-            except AssertionError:
-                pass
-            else:
-                raise AssertionError("a dropped key tile passed the "
-                                     "attention limits")
+        worst = max(worst, _attn_check(got, want, dt, name, path))
+        if name in fault_at:
+            if path != "tensor_cores":
+                raise AssertionError(f"{name} ran on {path}")
+            _planted_fault(q, k, v, want, causal, window, name)
     # the long case against mha_chunked, kv heads repeated by hand
     q, k, v = _qkv(gen, 1, 32, 8, LONG_S, 64, bf16)
     got = fa.flash_attention(q, k, v)
     want = tref.mha_chunked(q, k.repeat_interleave(4, 1),
                             v.repeat_interleave(4, 1))
-    worst = max(worst, _attn_check(got, want, bf16, f"long S={LONG_S}"))
+    worst = max(worst, _attn_check(got, want, bf16, f"long S={LONG_S}",
+                                   fa.route(bf16, 64)))
+    del want
     long_ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps=3)
+    long_dev = kernel_device_ms(lambda: fa.flash_attention(q, k, v), reps=3)
+    sdpa = sdpa_call(q, k, v)
     bound = attention_bound(1, 32, 8, LONG_S, 64, bf16, True, None)
-    emit(phase="attention_long", s=LONG_S, ms=long_ms, bound_ms=bound[0],
-         bound_by=bound[1])
+    emit(phase="attention_long", s=LONG_S, route=fa.route(bf16, 64),
+         ms=long_ms, device_ms=long_dev, library_ms=cuda_ms(sdpa, reps=3),
+         library_device_ms=kernel_device_ms(sdpa, reps=3),
+         bound_ms=bound[0], bound_by=bound[1])
     emit(phase="attention_vs_plain", ok=True, cases=len(cases) + 1,
-         max_abs_err=worst)
+         planted_faults=len(fault_at), max_abs_err=worst)
     return worst
 
 
-def _attn_check(got, want, dtype, what) -> float:
+def sdpa_call(q, k, v):
+    """``scaled_dot_product_attention`` on the same inputs: the yardstick,
+    never called by the port."""
+    import torch.nn.functional as F
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+
+def _attn_check(got, want, dtype, what, path) -> float:
     import torch
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -722,8 +778,8 @@ def _attn_check(got, want, dtype, what) -> float:
     diff = (g - w).abs()
     err = float(diff.max())
     rel = float((g - w).norm() / w.norm())
-    emit(phase="attention_case", case=what, max_abs_err=err, tol=tol,
-         rel_l2=rel, rel_l2_tol=rel_tol,
+    emit(phase="attention_case", case=what, route=path, max_abs_err=err,
+         tol=tol, rel_l2=rel, rel_l2_tol=rel_tol,
          worst_excess=float((diff - tol * w.abs()).max()))
     if not bool(torch.isfinite(g).all()) or rel > rel_tol or \
             not bool((diff <= tol + tol * w.abs()).all()):
@@ -1001,10 +1057,12 @@ def lm_path():
 
     prompts, launches, prefills, _ = serve_traffic(
         cfg, model, fa.launch_counts, fa.reset_launch_counts, "lm_main_path")
-    if launches["flash_attention"] != cfg.num_layers * prefills:
-        raise AssertionError(
-            f"flash_attention launched {launches['flash_attention']} "
-            f"times, expected {cfg.num_layers} x {prefills} prefills")
+    path = fa.route(getattr(torch, cfg.compute_dtype), cfg.head_dim)
+    for key in ("flash_attention", "flash_attention_" + path):
+        if launches[key] != cfg.num_layers * prefills:
+            raise AssertionError(
+                f"{key} launched {launches[key]} times, expected "
+                f"{cfg.num_layers} x {prefills} prefills")
 
     toks = torch.as_tensor(prompts[:PROMPTS], dtype=torch.long,
                            device=DEVICE)
@@ -1014,36 +1072,50 @@ def lm_path():
 
 
 def time_attention(gen, errs_max, launches):
-    """The kernel at the granite prefill shape: its time, its bound, the
-    plain version's time and SDPA's (the yardstick, never called by the
-    port)."""
+    """The kernels at the two prefill shapes, bf16 on the tensor cores:
+    granite-3-2b (B 4, H 32, Hkv 8, S 1024, D 64) and a chatglm3-like one
+    (Hkv 2, D 128); then the f32 route (CUDA cores) at granite's.  Each
+    with its call time (CUDA events around a call, median of 20), its
+    device time (the profiler), its bound, the plain version's time and
+    SDPA's call and device times (the yardstick, never called by the
+    port).  Returns the kernels line entry, at granite's shape."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref as tref
-    b, h, hkv, s, d = PROMPTS, 32, 8, PROMPT_LEN, 64
-    q, k, v = _qkv(gen, b, h, hkv, s, d, torch.bfloat16)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps=20)
-    plain = cuda_ms(lambda: tref.attention_ref(q, k, v), reps=5)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), reps=20)
-    sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                          enable_gqa=True)
-    torch.cuda.synchronize()
-    sdpa_err = float((sdpa.float() - fa.flash_attention(q, k, v).float())
-                     .abs().max())
-    bound_ms, bound_by, n_ops, n_bytes = attention_bound(
-        b, h, hkv, s, d, torch.bfloat16, True, None)
-    emit(phase="time", kernel="flash_attention", shape=[b, h, hkv, s, d],
-         dtype="bfloat16", ms=ms, plain_ms=plain, library_ms=lib,
-         sdpa_max_abs_diff=sdpa_err, bound_ms=bound_ms, bound_by=bound_by,
-         flops=n_ops, bytes=n_bytes, tflops=n_ops / ms / 1e9)
+    rows = {}
+    for what, hkv, d, dt in (("granite", 8, 64, torch.bfloat16),
+                             ("chatglm3-like", 2, 128, torch.bfloat16),
+                             ("granite f32", 8, 64, torch.float32)):
+        b, h, s = PROMPTS, 32, PROMPT_LEN
+        q, k, v = _qkv(gen, b, h, hkv, s, d, dt)
+        kernel = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+        sdpa = sdpa_call(q, k, v)
+        ms = cuda_ms(kernel, reps=20)
+        device_ms = kernel_device_ms(kernel)
+        plain = cuda_ms(lambda: tref.attention_ref(q, k, v), reps=5)
+        lib = cuda_ms(sdpa, reps=20)
+        lib_device = kernel_device_ms(sdpa)
+        measured = isinstance(device_ms, float) and \
+            isinstance(lib_device, float)
+        torch.cuda.synchronize()
+        sdpa_err = float((sdpa().float() - kernel().float()).abs().max())
+        bound_ms, bound_by, n_ops, n_bytes = attention_bound(
+            b, h, hkv, s, d, dt, True, None)
+        rows[what] = dict(ms=ms, device_ms=device_ms, plain_ms=plain,
+                          library_ms=lib, library_device_ms=lib_device,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        emit(phase="time", kernel="flash_attention", case=what,
+             route=fa.route(dt, d), shape=[b, h, hkv, s, d],
+             dtype=str(dt).split(".")[-1], sdpa_max_abs_diff=sdpa_err,
+             flops=n_ops, bytes=n_bytes,
+             tflops=n_ops / device_ms / 1e9 if measured else "not measured",
+             device_vs_library=device_ms / lib_device if measured
+             else "not measured", **rows[what])
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
             "replaces": "src/repro/kernels/flash_attention.py:121",
             "launches": launches["flash_attention"],
-            "max_abs_err": errs_max, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib}
+            "max_abs_err": errs_max, **rows["granite"]}
 
 
 # -- RWKV-6 serving: the WKV6 kernel and rwkv6-1.6b -------------------------
@@ -1385,19 +1457,48 @@ def time_wkv6(gen, errs_max, launches):
 
 
 def build_all():
-    """The three libraries, one nvcc each, started together."""
+    """The four libraries, one nvcc each, started together; then the
+    tensor-core attention library's ptxas report and SASS."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import bsr_spmv as tk
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wkv6 as twkv
+    libraries = [tk.LIBRARY, *fa.LIBRARIES.values(), twkv.LIBRARY]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
-        futs = {m.LIBRARY.name: ex.submit(m.build) for m in (tk, fa, twkv)}
-        libs = {name: f.result() for name, f in futs.items()}
+    with ThreadPoolExecutor(len(libraries)) as ex:
+        paths = list(ex.map(lambda lib: lib.build(), libraries))
     emit(phase="build", seconds=time.perf_counter() - t0,
-         libraries=[p.name for p in libs.values()])
-    for p in libs.values():
+         libraries=[p.name for p in paths])
+    for p in paths:
         print(p.with_suffix(".log").read_text(), flush=True)
+    tensor_core_report(fa.LIBRARIES["tensor_cores"].path())
+
+
+def tensor_core_report(lib):
+    """Registers and spill bytes of each kernel from ptxas's log, and the
+    HGMMA (wgmma) instructions in the SASS.  Raises on a spill, on
+    ptxas's "wgmma ... serialized" warning, on nvcc's warning of a
+    variable used before it is set, or on a SASS without HGMMA."""
+    import re
+    from repro_torch.kernels.cuda_lib import nvcc
+    log = lib.with_suffix(".log").read_text()
+    registers = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    sass = subprocess.run(
+        [str(pathlib.Path(nvcc()).with_name("cuobjdump")), "-sass",
+         str(lib)], capture_output=True, text=True, check=True).stdout
+    hgmma = len(re.findall(r"\bHGMMA\.", sass))
+    serialized = [ln for ln in log.splitlines()
+                  if "wgmma" in ln and "serialized" in ln]
+    unset = [ln for ln in log.splitlines()
+             if "before its value is set" in ln]
+    emit(phase="build_tensor_cores", library=lib.name, registers=registers,
+         spill_bytes=spills, hgmma_instructions=hgmma,
+         serialized_warnings=serialized, unset_warnings=unset)
+    if not registers or any(spills) or serialized or unset or hgmma == 0:
+        raise AssertionError(f"{lib.name}: spills {spills}, HGMMA {hgmma}, "
+                             f"warnings {serialized + unset}")
 
 
 def graph_phases():

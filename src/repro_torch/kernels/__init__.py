@@ -2,6 +2,10 @@
 #   csrc/bsr_spmv.cu        — block-sparse semiring SpMV + the fused
 #                             frontier-masked sweep (graph engine)
 #   csrc/flash_attention.cu — causal/windowed flash attention (LM prefill)
+#                             on the CUDA cores: f32, and bf16 at D != 64, 128
+#   csrc/flash_attention_sm90.cu
+#                           — the same on the tensor cores (wgmma + TMA):
+#                             bf16 at D 64 and 128
 #   csrc/wkv6.cu            — the RWKV-6 WKV recurrence (prefill, decode)
 #   bsr_spmv.py, flash_attention.py, wkv6.py
 #                           — build at first use, ctypes binding, checked

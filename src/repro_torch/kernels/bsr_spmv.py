@@ -62,11 +62,6 @@ LIBRARY = CudaLibrary("bsr_spmv", SOURCE, NVCC_FLAGS, _bind,
                       "bsr_error_string")
 
 
-def build() -> pathlib.Path:
-    """Compile the SpMV library unless it exists; returns its path."""
-    return LIBRARY.build()
-
-
 def _check_plan(vals, cols, nnz, x, semiring):
     if vals.dim() != 4 or vals.shape[2] != vals.shape[3]:
         raise ValueError(f"vals must be (R, K, B, B), got {tuple(vals.shape)}")

@@ -1,24 +1,35 @@
-"""Hand-written CUDA flash attention: build at first use, bind, check, launch.
+"""Hand-written CUDA flash attention: route, build at first use, bind, check,
+launch.
 
 ``flash_attention`` replaces the JAX package's Pallas kernel
-``flash_attention`` (``src/repro/kernels/flash_attention.py``).  The CUDA
-source is ``csrc/flash_attention.cu``; its head states the work split, the
-bound on the H100 (operations: 17.2 GFLOP, 17.4 us at the bf16 tensor-core
-peak for one granite-3-2b prefill wave of 4 x 1024 tokens) and what the
-simple design leaves on the table.
+``flash_attention`` (``src/repro/kernels/flash_attention.py``) with two
+CUDA kernels, picked by ``route(dtype, d)`` before any launch:
+
+- ``"tensor_cores"``: bf16 at head dim 64 or 128 (granite-3-2b, chatglm3
+  and the llama family), ``csrc/flash_attention_sm90.cu``: wgmma on the
+  tensor cores fed by a TMA ring of K/V tiles;
+- ``"cuda_cores"``: f32 at any head dim up to 128, and bf16 at the other
+  head dims, ``csrc/flash_attention.cu``: f32 products on the CUDA cores.
+
+Each source's head states its work split, the bound on the H100
+(operations: 17.2 GFLOP, 17.4 us at the bf16 tensor-core peak for one
+granite-3-2b prefill wave of 4 x 1024 tokens) and what its design leaves
+on the table.
 
 Device rule.  Given CPU tensors the wrapper runs the plain torch version
 (``ref.attention_ref``: ``mha_ref``, or ``mha_chunked`` from S = 16384
-on); given CUDA tensors it launches the kernel or raises.  There is no
-fallback from a failed build or launch.
+on); given CUDA tensors it launches the routed kernel or raises.  The
+route is never chosen after a failure: a failed build or launch raises,
+with no fallback to the other kernel or to the plain version.
 
-Build.  ``kernels/cuda_lib.py`` compiles the source with nvcc for sm_90a
-into its own ``build/kernels/libflash_attention-<hash>.so`` (no
-``-fmad=false``: nothing here is held bit for bit) the first time the
-kernel is launched.
+Build.  ``kernels/cuda_lib.py`` compiles each source with nvcc for sm_90a
+into its own ``build/kernels/lib<name>-<hash>.so`` (no ``-fmad=false``:
+nothing here is held bit for bit) the first time its kernel is launched.
 
-The wrapper adds one to ``launch_counts["flash_attention"]`` where it
-launches the kernel, and nowhere else.
+The wrapper adds one to ``launch_counts["flash_attention"]`` and to the
+route's own count (``flash_attention_tensor_cores`` or
+``flash_attention_cuda_cores``) where it launches a kernel, and nowhere
+else.
 """
 
 from __future__ import annotations
@@ -32,20 +43,37 @@ import torch
 from . import ref
 from .cuda_lib import BASE_FLAGS, CudaLibrary, on_cpu
 
-SOURCE = (pathlib.Path(__file__).resolve().parent / "csrc"
-          / "flash_attention.cu")
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TENSOR_CORE_HEAD_DIMS = (64, 128)
 MAX_HEAD_DIM = 128
-MAX_GRID_Y = 65535  # B * H blocks along the grid's y axis
+MAX_GRID_Y = 65535  # B * H blocks along the CUDA-core kernel's grid y axis
 
-launch_counts = {"flash_attention": 0}
+launch_counts = {"flash_attention": 0, "flash_attention_tensor_cores": 0,
+                 "flash_attention_cuda_cores": 0}
 
 
 def reset_launch_counts() -> None:
-    launch_counts["flash_attention"] = 0
+    for key in launch_counts:
+        launch_counts[key] = 0
 
 
-def _bind(lib) -> None:
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel that takes q, k, v of this dtype and head dim:
+    ``"tensor_cores"`` for bf16 at D 64 or 128, else ``"cuda_cores"``.
+    Raises for a head dim the kernels do not take (D > 128) or a dtype
+    other than f32 and bf16."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} not in [1, {MAX_HEAD_DIM}]")
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"the CUDA kernels take "
+                        f"{sorted(map(str, DTYPE_CODES))}; got {dtype}")
+    if dtype == torch.bfloat16 and d in TENSOR_CORE_HEAD_DIMS:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def _bind_cuda_cores(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [
         p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, i, i,
@@ -53,16 +81,27 @@ def _bind(lib) -> None:
     lib.flash_attention_launch.restype = i
 
 
-LIBRARY = CudaLibrary("flash_attention", SOURCE, BASE_FLAGS, _bind,
-                      "flash_error_string")
+def _bind_tensor_cores(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_sm90_launch.argtypes = [
+        p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, i, i,
+        ctypes.c_float, p]
+    lib.flash_attention_sm90_launch.restype = i
 
 
-def build() -> pathlib.Path:
-    """Compile the attention library unless it exists; returns its path."""
-    return LIBRARY.build()
+LIBRARIES = {
+    "cuda_cores": CudaLibrary("flash_attention", CSRC / "flash_attention.cu",
+                              BASE_FLAGS, _bind_cuda_cores,
+                              "flash_error_string"),
+    "tensor_cores": CudaLibrary(
+        "flash_attention_sm90", CSRC / "flash_attention_sm90.cu", BASE_FLAGS,
+        _bind_tensor_cores, "flash_sm90_error_string"),
+}
 
 
 def _check(q, k, v):
+    """(B, H, Hkv, S, D, route), or raise for what the kernels do not
+    take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be (B, H, S, D)")
     b, h, s, d = q.shape
@@ -74,19 +113,22 @@ def _check(q, k, v):
             f"{tuple(v.shape)}")
     if hkv < 1 or h % hkv:
         raise ValueError(f"kv heads {hkv} must divide heads {h}")
-    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(
-            f"the CUDA kernel takes {sorted(map(str, DTYPE_CODES))} for q, "
-            f"k and v alike; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
-    if b * h > MAX_GRID_Y:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share a dtype; got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    path = route(q.dtype, d)
+    if path == "cuda_cores" and b * h > MAX_GRID_Y:
         raise ValueError(f"B * H = {b * h} > {MAX_GRID_Y}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")
-    return b, h, hkv, s, d
+        # TMA reads 16-byte aligned rows with strides in 16-byte steps
+        if path == "tensor_cores" and (t.data_ptr() % 16 or any(
+                t.stride(i) % 8 for i in range(3) if t.shape[i] > 1)):
+            raise ValueError(f"{name} needs a 16-byte aligned address and "
+                             f"strides of b, h, s in multiples of 8 for the "
+                             f"tensor-core kernel")
+    return b, h, hkv, s, d, path
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,7 +137,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """o = softmax(q kᵀ · scale, masked) v, per head.
 
     q (B, H, S, D); k, v (B, Hkv, S, D) with Hkv dividing H: query head h
-    reads kv head h // (H / Hkv).  Any strides with a contiguous last dim.
+    reads kv head h // (H / Hkv).  Any strides with a contiguous last dim
+    (the tensor-core route also needs them in 16-byte steps).
     ``window`` (≥ 1) keeps keys with kpos > qpos - window; keys at or past
     S never attend.  Returns o (B, H, S, D) in q's dtype; on the card its
     memory is laid out as (B, S, H, D), so ``o.transpose(1, 2)`` is
@@ -105,19 +148,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be None or >= 1, got {window}")
     if on_cpu(q, k, v):
         return ref.attention_ref(q, k, v, causal, window, scale)
-    b, h, hkv, s, d = _check(q, k, v)
+    b, h, hkv, s, d, path = _check(q, k, v)
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     o = torch.empty((b, s, h, d), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *(t.stride(i) for t in (q, k, v, o) for i in range(3)))
-    lib = LIBRARY.load()
+    library = LIBRARIES[path]
+    lib = library.load()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
+            b, h, hkv, s, d, int(bool(causal)), window or 0, float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
-            b, h, hkv, s, d, int(bool(causal)), window or 0, float(scale),
-            DTYPE_CODES[q.dtype], stream)
-    LIBRARY.check(rc, "flash_attention")
+        if path == "tensor_cores":
+            rc = lib.flash_attention_sm90_launch(*args, stream)
+        else:
+            rc = lib.flash_attention_launch(*args, DTYPE_CODES[q.dtype],
+                                            stream)
+    library.check(rc, f"flash_attention ({path})")
     launch_counts["flash_attention"] += 1
+    launch_counts["flash_attention_" + path] += 1
     return o

@@ -59,11 +59,6 @@ def _bind(lib) -> None:
 LIBRARY = CudaLibrary("wkv6", SOURCE, NVCC_FLAGS, _bind, "wkv6_error_string")
 
 
-def build() -> pathlib.Path:
-    """Compile the WKV6 library unless it exists; returns its path."""
-    return LIBRARY.build()
-
-
 def _check_shapes(r, k, v, w, u, s0):
     """(B, T, H, hs) of model-layout inputs; raises on any mismatch."""
     if r.dim() != 4:

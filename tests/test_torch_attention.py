@@ -12,9 +12,14 @@ reference kernel: it pads S to 128 and leaves the padded keys unmasked
 when not causal, so it differs from ``mha_ref``; the port (and its CUDA
 kernel, which masks every key >= S) equals ``mha_ref``.
 
-The tests marked ``cuda`` hold the hand-written CUDA kernel against the
+The tests marked ``cuda`` hold the hand-written CUDA kernels against the
 plain version on the card; they skip without one and need no jax (on the
 card: ``python -m pytest -q -m cuda tests/test_torch_attention.py``).
+``route`` picks the kernel: bf16 at D 64 and 128 takes the tensor-core
+kernel (``test_cuda_tensor_cores_*``), f32 and the other head dims the
+CUDA-core kernel (``test_cuda_flash_matches_plain`` at D 16, 32 and in
+f32, ``test_cuda_flash_strided_output_layout``); each card test asserts
+that its route's launch count moved.
 """
 
 import numpy as np
@@ -132,11 +137,34 @@ def test_decode_shape_takes_plain_path(rng):
 
 
 def test_cpu_tensors_never_launch(rng):
+    """CPU tensors of either route take the plain version: no count
+    moves, the per-route counts included."""
     tfa.reset_launch_counts()
-    q, k, v = _torch(_qkv(rng, 1, 4, 2, 64, 16, "float32"), "float32")
-    tops.attention(q, k, v)
-    tfa.flash_attention(q, k, v)
-    assert tfa.launch_counts["flash_attention"] == 0
+    for dtype, d in (("float32", 16), ("bfloat16", 64), ("bfloat16", 128)):
+        q, k, v = _torch(_qkv(rng, 1, 4, 2, 64, d, dtype), dtype)
+        tops.attention(q, k, v)
+        tfa.flash_attention(q, k, v)
+    assert set(tfa.launch_counts) == {"flash_attention",
+                                      "flash_attention_tensor_cores",
+                                      "flash_attention_cuda_cores"}
+    assert all(n == 0 for n in tfa.launch_counts.values())
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    ("bfloat16", 64, "tensor_cores"), ("bfloat16", 128, "tensor_cores"),
+    ("float32", 64, "cuda_cores"), ("float32", 128, "cuda_cores"),
+    ("bfloat16", 32, "cuda_cores"), ("bfloat16", 16, "cuda_cores")])
+def test_route_picks_kernel_by_dtype_and_head_dim(dtype, d, want):
+    assert tfa.route(TORCH_DT[dtype], d) == want
+    assert tfa.LIBRARIES[want].source.exists()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_rejects_head_dim_over_128(dtype):
+    with pytest.raises(ValueError, match="head dim 192"):
+        tfa.route(TORCH_DT[dtype], 192)
+    with pytest.raises(TypeError):
+        tfa.route(torch.float16, 64)
 
 
 def test_gqa_reads_grouped_heads(rng):
@@ -168,16 +196,22 @@ def cuda():
     return torch.device("cuda")
 
 
-def _check_card(arrs, dtype, causal, window, cuda):
-    q, k, v = _torch(arrs, dtype, cuda)
-    before = tfa.launch_counts["flash_attention"]
+def _check_card(q, k, v, dtype, causal, window):
+    """One launch against the plain version; returns the route taken."""
+    path = tfa.route(q.dtype, q.shape[-1])
+    before = dict(tfa.launch_counts)
     got = tfa.flash_attention(q, k, v, causal=causal, window=window)
     want = tref.attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert tfa.launch_counts["flash_attention"] == before + 1
+    assert tfa.launch_counts["flash_attention"] == \
+        before["flash_attention"] + 1
+    key = "flash_attention_" + path
+    assert tfa.launch_counts[key] == before[key] + 1
     assert got.dtype == q.dtype and got.shape == q.shape
+    assert got.transpose(1, 2).is_contiguous()
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype],
                                atol=TOL[dtype])
+    return path
 
 
 @pytest.mark.cuda
@@ -187,19 +221,63 @@ def _check_card(arrs, dtype, causal, window, cuda):
     (1, 4, 4, 100, 64), (2, 4, 1, 200, 128), (1, 2, 2, 70, 16)])
 def test_cuda_flash_matches_plain(dtype, causal, window, b, h, kv, s, d,
                                   rng, cuda):
-    _check_card(_qkv(rng, b, h, kv, s, d, dtype), dtype, causal, window,
-                cuda)
+    q, k, v = _torch(_qkv(rng, b, h, kv, s, d, dtype), dtype, cuda)
+    _check_card(q, k, v, dtype, causal, window)
+
+
+def _model_layout(t):
+    """(B, H, S, D) values in (B, S, H, D) memory, as the model passes
+    them: seen through transpose(1, 2), read through strides."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
 
 
 @pytest.mark.cuda
 def test_cuda_flash_strided_output_layout(rng, cuda):
-    """q, k, v as (B, S, H, D) memory seen through transpose(1, 2): the
-    model's layout, read through strides without a copy."""
+    """The model's layout on the CUDA-core route (D 32)."""
     arrs = _qkv(rng, 2, 4, 2, 96, 32, "bfloat16")
-    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
-               for t in _torch(arrs, "bfloat16", cuda))
-    got = tfa.flash_attention(q, k, v)
-    assert got.transpose(1, 2).is_contiguous()
-    want = tref.attention_ref(q, k, v)
-    torch.cuda.synchronize()
-    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-2, atol=2e-2)
+    q, k, v = (_model_layout(t) for t in _torch(arrs, "bfloat16", cuda))
+    assert _check_card(q, k, v, "bfloat16", True, None) == "cuda_cores"
+
+
+TC_MASKS = [(True, None), (False, None), (True, 40), (True, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 4, 16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [64, 100, 777, 1024])
+@pytest.mark.parametrize("causal,window", TC_MASKS)
+def test_cuda_tensor_cores_match_plain(causal, window, s, d, group, rng,
+                                       cuda):
+    """bf16 at D 64 and 128 on the tensor-core route: 16 query heads
+    reading 16 / group kv heads, ragged and tile-aligned S."""
+    q, k, v = _torch(_qkv(rng, 1, 16, 16 // group, s, d, "bfloat16"),
+                     "bfloat16", cuda)
+    assert _check_card(q, k, v, "bfloat16", causal, window) == \
+        "tensor_cores"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,window", TC_MASKS)
+def test_cuda_tensor_cores_model_layout(causal, window, d, rng, cuda):
+    """The model's (B, S, H, D) memory on the tensor-core route, through
+    the TMA descriptors' strides."""
+    arrs = _qkv(rng, 2, 8, 2, 300, d, "bfloat16")
+    q, k, v = (_model_layout(t) for t in _torch(arrs, "bfloat16", cuda))
+    assert _check_card(q, k, v, "bfloat16", causal, window) == \
+        "tensor_cores"
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_cores_refuse_unaligned_rows(rng, cuda):
+    """Rows that TMA cannot read raise before any launch; nothing falls
+    back to the other kernel or to the plain version."""
+    q, k, v = _torch(_qkv(rng, 1, 4, 2, 64, 72, "bfloat16"), "bfloat16",
+                     cuda)
+    q = q[..., 4:68]  # D 64 at an address 8 bytes past the row's start
+    k, v = k[..., :64], v[..., :64]
+    before = dict(tfa.launch_counts)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(q, k, v)
+    assert tfa.launch_counts == before
