@@ -12,23 +12,37 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      TF32 off for matmuls and cuDNN;
   2. build the CUDA libraries from ``src/repro_torch/kernels/csrc`` (one
      nvcc per source, started together; sm_90a) and print the build time
-     and ptxas's register report; the tensor-core attention library must
-     show 0 spill bytes, no "wgmma ... serialized" warning and HGMMA
-     instructions in its SASS (``cuobjdump -sass``);
-  3. each SpMV kernel against its plain torch version on the card: the
-     CA stand-in at scale 0.02 for the 4 semirings × B ∈ {16, 32}, the
-     fused kernel over 5 update rules × {empty, sparse, dense} frontiers
-     at Q = 1 and 4, garbage beyond nnz;
+     and ptxas's register report (the compacted SpMV library's registers
+     and spills as a line of their own); the tensor-core attention
+     library must show 0 spill bytes, no "wgmma ... serialized" warning
+     and HGMMA instructions in its SASS (``cuobjdump -sass``);
+  3. each SpMV kernel of both routes against its plain torch version on
+     the card: the CA stand-in at scale 0.02 for the 4 semirings × B ∈
+     {16, 32}, the fused kernels over 5 update rules × {empty, sparse,
+     dense} frontiers at Q = 1 and 4, garbage beyond nnz.  The ELL route
+     (``csrc/bsr_spmv.cu``) within 2e-6 relative for plus_times and the
+     PageRank rules, bit for bit otherwise; the compacted route
+     (``csrc/bsr_spmv_compact.cu``) bit for bit against its plain version
+     and against the ELL kernel, every ring and rule;
   4. the main path at full width: ``GraphProcessor`` on the full-scale
      CA stand-in (n = 1,962,801) at b=16, 64 clusters, with every query
-     checked against the numpy oracles and ``degrade=False``; before the
-     queries, both kernels against the plain versions on a 4096-row-block
-     slice of each full-scale plan with the full x; then sssp and
-     pagerank on the power-law stand-in ``fb`` at scale 0.005, b=32;
-  5. times at the full-scale CA plans: each kernel (CUDA events, median),
-     its plain version, the bound (bytes / 3.35 TB/s) and, for
-     plus_times, ``torch.sparse_csr_tensor`` @ x as a yardstick;
-     then the graph plans are freed;
+     checked against the numpy oracles and ``degrade=False``; each plan's
+     compacted index is built at ``prepare`` (its seconds and MB
+     printed); before the queries, all four kernels against the plain
+     versions on a 4096-row-block slice of each full-scale plan with the
+     full x (the compacted route over the plan index's ``rows`` view);
+     the compacted kernels must launch on the main path and the ELL ones
+     not at all; the sync fused sssp's device idle share (profiled after
+     two warm-up queries); then sssp and pagerank on the power-law
+     stand-in ``fb`` at scale 0.005, b=32, all four kernels against their
+     plain versions on its plans (hub rows of up to 2,148 entries), and
+     both routes' times there;
+  5. times at the full-scale CA plans, both routes: each kernel's call
+     (CUDA events, median) and device time (profiler), its plain version,
+     the bound from the filled entries (bytes / 3.35 TB/s) and from the
+     ELL image, the fused kernels over a dense and a sparse frontier,
+     and, for plus_times, ``torch.sparse_csr_tensor`` @ x (call and
+     device time) as a yardstick; then the graph plans are freed;
   6. flash attention against its plain version (mha_ref; mha_chunked for
      the long case), each case on the kernel ``flash_attention.route``
      gives it (bf16 at D 64 and 128: tensor cores; f32 and bf16 at other
@@ -48,7 +62,8 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      wave's prefill logits against the same model with mha_ref, beside
      the distance a dropped key tile in every layer gives; prefill
      tokens/s, time to first token, decode ms/step and tokens/s, the
-     device idle share over decode steps;
+     device idle share over decode steps and over a prefill (each
+     profiled window after an unrecorded warm-up pass);
   8. flash attention's times at the granite prefill shape and a
      chatglm3-like one (Hkv 2, D 128) in bf16, and at granite's in f32:
      the call (CUDA events) and the device time (profiler), the bound
@@ -128,18 +143,28 @@ def nvidia_smi() -> str:
 
 
 class Errors:
-    """Largest |kernel − plain| seen per kernel."""
+    """Largest |kernel − plain| seen per kernel (the ELL route's kernels
+    ``bsr_spmv``, ``bsr_spmv_fused``; the compacted route's
+    ``bsr_spmv_compact``, ``bsr_spmv_fused_compact``)."""
 
     def __init__(self):
-        self.max = {"bsr_spmv": 0.0, "bsr_spmv_fused": 0.0}
+        self.max = {"bsr_spmv": 0.0, "bsr_spmv_fused": 0.0,
+                    "bsr_spmv_compact": 0.0, "bsr_spmv_fused_compact": 0.0}
 
-    def check(self, name, got, want, semiring, rule, what):
+    def _diff(self, name, got, want):
         import torch
         got, want = got.float(), want.float()
         both_inf = torch.isinf(got) & torch.isinf(want) & (got == want)
         diff = torch.where(both_inf, 0.0, (got - want).abs())
         err = float(diff.max()) if diff.numel() else 0.0
         self.max[name] = max(self.max[name], err)
+        return got, want, both_inf, diff, err
+
+    def check(self, name, got, want, semiring, rule, what):
+        """The ELL route: plus_times and the PageRank rules within 2e-6
+        relative, the others bit for bit."""
+        import torch
+        got, want, both_inf, diff, err = self._diff(name, got, want)
         inexact = semiring == "plus_times" or rule.startswith("pagerank")
         if inexact:
             scale = torch.where(both_inf, 1.0, want.abs())
@@ -148,6 +173,13 @@ class Errors:
             ok = bool(torch.equal(got, want))
         if not ok:
             raise AssertionError(f"{name} != plain ({what}): max |Δ| {err}")
+
+    def exact(self, name, got, want, what):
+        """The compacted route: bit for bit on every ring and rule."""
+        import torch
+        err = self._diff(name, got, want)[4]
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} != {what}: max |Δ| {err}")
 
 
 def random_x(gen, q, c, b, semiring, rule, device):
@@ -159,23 +191,32 @@ def random_x(gen, q, c, b, semiring, rule, device):
 
 
 def compare_plan(vals, cols, nnz, c_rows, semiring, errs, gen, what,
-                 xs_rows=None, rules=RULES):
-    """Both kernels vs the plain versions on one plan (or slice of one):
-    Q ∈ {1, 4}; the fused kernel over the update rules × frontiers."""
+                 xs_rows=None, rules=RULES, index=None):
+    """All four kernels vs their plain versions on one plan (or slice of
+    one): Q ∈ {1, 4}; the fused kernels over the update rules ×
+    frontiers.  The ELL route within ``Errors.check``'s limits; the
+    compacted route (over ``index``, else an index built from these
+    arrays) bit for bit against its plain version and the ELL kernel."""
     import torch
     from repro_torch.kernels import bsr_spmv as tk
     from repro_torch.kernels import ref as tref
     dev = vals.device
     r, _, b, _ = vals.shape
+    if index is None:
+        index = tk.build_compact_index(vals, cols, nnz, semiring)
     valid = torch.ones((r, b), dtype=torch.bool, device=dev)
     valid[-1, b // 2:] = False
     for q in (1, 4):
         x = random_x(gen, q, c_rows, b, semiring, "relax", dev)
         y = tk.bsr_spmv(vals, cols, nnz, x, semiring)
         want = tref.bsr_spmv_ref(vals, cols, nnz, x, semiring)
+        yc = tk.bsr_spmv(vals, cols, nnz, x, semiring, index=index)
+        want_c = tref.bsr_spmv_compact_ref(index, x, semiring)
         torch.cuda.synchronize()
-        errs.check("bsr_spmv", y, want, semiring, "relax",
-                   f"{what} {semiring} Q={q}")
+        tag = f"{what} {semiring} Q={q}"
+        errs.check("bsr_spmv", y, want, semiring, "relax", tag)
+        errs.exact("bsr_spmv_compact", yc, want_c, f"plain ({tag})")
+        errs.exact("bsr_spmv_compact", yc, y, f"the ELL kernel ({tag})")
         for rule in rules:
             x = random_x(gen, q, c_rows, b, semiring, rule, dev)
             row0 = 0 if xs_rows is None else xs_rows
@@ -188,11 +229,12 @@ def compare_plan(vals, cols, nnz, c_rows, semiring, errs, gen, what,
                        "sparse": torch.rand((q, r), generator=gen) < 0.15,
                        "dense": torch.ones((q, r), dtype=torch.bool)
                        }[frontier].to(dev)
-                got = tk.bsr_spmv_fused(vals, cols, nnz, x, xg, valid, act,
-                                        *sc, semiring, rule)
-                want = tref.bsr_spmv_fused_ref(vals, cols, nnz, x, xg,
-                                               valid, act, *sc, semiring,
-                                               rule)
+                args = (x, xg, valid, act, *sc, semiring, rule)
+                got = tk.bsr_spmv_fused(vals, cols, nnz, *args)
+                want = tref.bsr_spmv_fused_ref(vals, cols, nnz, *args)
+                got_c = tk.bsr_spmv_fused(vals, cols, nnz, *args,
+                                          index=index)
+                want_c = tref.bsr_spmv_fused_compact_ref(index, *args)
                 torch.cuda.synchronize()
                 tag = f"{what} {semiring} {rule} {frontier} Q={q}"
                 errs.check("bsr_spmv_fused", got[0], want[0], semiring,
@@ -200,11 +242,18 @@ def compare_plan(vals, cols, nnz, c_rows, semiring, errs, gen, what,
                 for g_, w_ in zip(got[1:], want[1:]):
                     if not torch.equal(g_, w_):
                         raise AssertionError(f"fused flags differ: {tag}")
+                for part, g_, w_, e_ in zip(("x_new", "changed", "conv"),
+                                            got_c, want_c, got):
+                    errs.exact("bsr_spmv_fused_compact", g_, w_,
+                               f"plain ({tag}, {part})")
+                    errs.exact("bsr_spmv_fused_compact", g_, e_,
+                               f"the ELL kernel ({tag}, {part})")
 
 
 def garbage_check(vals, cols, nnz, c_rows, semiring, gen):
-    """Tiles beyond nnz hold garbage: neither kernel may read them.  The
-    rows are the first rows of a plan with c_rows row-blocks."""
+    """Tiles beyond nnz hold garbage: no kernel may read them, and the
+    compacted index built from them is the clean one.  The rows are the
+    first rows of a plan with c_rows row-blocks."""
     import torch
     from repro_torch.kernels import bsr_spmv as tk
     r, k, b, _ = vals.shape
@@ -222,10 +271,20 @@ def garbage_check(vals, cols, nnz, c_rows, semiring, gen):
                            semiring, "relax")
     fd = tk.bsr_spmv_fused(trash, cols, nnz, x, xg, valid, act, *sc,
                            semiring, "relax")
+    ic = tk.build_compact_index(vals, cols, nnz, semiring)
+    id_ = tk.build_compact_index(trash, cols, nnz, semiring)
+    cc = tk.bsr_spmv(trash, cols, nnz, x, semiring, index=id_)
+    fcc = tk.bsr_spmv_fused(trash, cols, nnz, x, xg, valid, act, *sc,
+                            semiring, "relax", index=id_)
     torch.cuda.synchronize()
     if not (torch.equal(clean, dirty) and torch.equal(fc[0], fd[0])
             and torch.equal(fc[1], fd[1])):
         raise AssertionError(f"garbage beyond nnz leaked ({semiring})")
+    if not (torch.equal(ic.row_ptr, id_.row_ptr)
+            and torch.equal(ic.pairs, id_.pairs) and torch.equal(cc, clean)
+            and all(torch.equal(a, b_) for a, b_ in zip(fcc, fc))):
+        raise AssertionError(f"garbage beyond nnz reached the compacted "
+                             f"route ({semiring})")
 
 
 # -- timing ------------------------------------------------------------------
@@ -249,8 +308,10 @@ def cuda_ms(fn, reps=10, warmup=2) -> float:
 
 
 def spmv_bytes(p, q, act=None) -> int:
-    """Least bytes one call must move: each input read once (true tiles
-    of the walked rows, their cols, nnz, x), each output written once."""
+    """The ELL image's bytes for one call: each input read once (true
+    tiles of the walked rows, their cols, nnz, x), each output written
+    once.  Kept as ``ell_bound_ms``: the bound of the format, not of the
+    function."""
     b = p.b
     rows = p.nnz if act is None else p.nnz[act]
     tiles = int(rows.sum())
@@ -267,11 +328,72 @@ def fused_bytes(p, q, act) -> int:
     return spmv_bytes(p, q, act) + n_act * b * (4 + 1) + p.r_pad + p.r_pad
 
 
-def time_kernels(proc, g, errs, launches):
-    """Times at the full-scale plans; returns the kernels line entries."""
+def entry_bytes(index, q, act=None, fused=False) -> int:
+    """The function's own bytes for one call (``bound_ms``): the filled
+    entries of the walked rows (8 B each: source and value), their row
+    pointers, the x values those entries read (each once), y written
+    once for the walked rows; fused, also xg and valid of those rows, the
+    act mask and the changed bits."""
+    import torch
+    b = index.b
+    row_ptr = index.row_ptr.long()
+    walked = (torch.ones(index.r * b, dtype=torch.bool, device=row_ptr.device)
+              if act is None else act.repeat_interleave(b))
+    on = walked.repeat_interleave(row_ptr.diff())     # per entry
+    src = index.pairs[int(row_ptr[0]):int(row_ptr[-1]), 0][on]
+    n_x = int(torch.unique(src).numel())
+    n, e = int(walked.sum()), src.numel()
+    nbytes = e * 8 + (n + 1) * 4 + q * n_x * 4 + q * n * 4
+    if fused:
+        nbytes += n * (4 + 1) + index.r + index.r
+    return nbytes
+
+
+def csr_yardstick(p, g, x):
+    """The same permuted pull matrix as a CSR tensor (plus_times,
+    out-stochastic weights) and its call on x: the library's SpMV, timed
+    as a yardstick and never called by the port."""
     import numpy as np
     import torch
     from repro_torch.core.graph import Graph
+    outdeg = np.maximum(np.diff(g.indptr), 1)
+    w = (1.0 / outdeg)[np.repeat(np.arange(g.n), np.diff(g.indptr))]
+    gw = Graph(n=g.n, indptr=g.indptr, indices=g.indices,
+               weights=w.astype(np.float32))
+    gm = gw.permute(p.perm.astype(np.int32)).transpose()
+    n_pad = p.r_pad * p.b
+    indptr = np.concatenate([gm.indptr, np.full(
+        n_pad - gm.n, gm.indptr[-1], dtype=gm.indptr.dtype)])
+    with warnings.catch_warnings():  # "beta state"
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_csr_tensor(
+            torch.from_numpy(indptr), torch.from_numpy(
+                gm.indices.astype(np.int64)),
+            torch.from_numpy(gm.weights), size=(n_pad, n_pad),
+            check_invariants=False).to(DEVICE)
+    xf = x.reshape(-1, 1)
+    return lambda: a @ xf
+
+
+# the kernels' names in the profiler's table (kernel_device_ms filters)
+KERNEL_KEYS = {"bsr_spmv": "bsr_spmv_kernel<",
+               "bsr_spmv_fused": "bsr_spmv_fused_kernel<",
+               "bsr_spmv_compact": "bsr_spmv_compact_kernel<",
+               "bsr_spmv_fused_compact": "bsr_spmv_fused_compact_kernel<"}
+SPMV_SOURCES = {"bsr_spmv": "src/repro_torch/kernels/csrc/bsr_spmv.cu",
+                "bsr_spmv_compact":
+                    "src/repro_torch/kernels/csrc/bsr_spmv_compact.cu"}
+
+
+def time_kernels(proc, g, errs, launches):
+    """Times at the full-scale plans, both routes of both kernels, for
+    min_plus and plus_times: the call (CUDA events, median of 10), the
+    kernel's device time (the profiler), the plain version, the bound
+    from the filled entries (``bound_ms``) and from the ELL image
+    (``ell_bound_ms``); for plus_times the CSR call and its device time;
+    the fused kernels over a dense and a sparse frontier.  Returns the
+    kernels line's four SpMV entries (plus_times)."""
+    import torch
     from repro_torch.kernels import bsr_spmv as tk
     from repro_torch.kernels import ref as tref
     out = {}
@@ -279,92 +401,107 @@ def time_kernels(proc, g, errs, launches):
             ("min_plus", "base", None),
             ("plus_times", "base", "out_stochastic")):
         p = proc.prepare(semiring, variant=variant, normalize=normalize)
+        index = p.compact_index()
         x = torch.rand((1, p.r_pad, p.b), device=p.device)
         if semiring == "plus_times":
             x = x / p.n  # rank-sized values
-        args = (p.vals, p.cols, p.nnz, x, semiring)
-        ms = cuda_ms(lambda: tk.bsr_spmv(*args))
-        plain = cuda_ms(lambda: tref.bsr_spmv_ref(*args), reps=3, warmup=1)
-        nbytes = spmv_bytes(p, 1)
-        lib = None
+        ell_args = (p.vals, p.cols, p.nnz, x, semiring)
+        y_ell = tk.bsr_spmv(*ell_args)
+        y_c = tk.bsr_spmv(*ell_args, index=index)
+        torch.cuda.synchronize()
+        errs.exact("bsr_spmv_compact", y_c, y_ell,
+                   f"the ELL kernel (full CA plan, {semiring})")
+        lib = lib_device = None
         if semiring == "plus_times":
-            # the same permuted pull matrix as a CSR tensor: yardstick only
-            gn = g
-            outdeg = np.maximum(np.diff(gn.indptr), 1)
-            w = (1.0 / outdeg)[np.repeat(np.arange(gn.n), np.diff(gn.indptr))]
-            gw = Graph(n=gn.n, indptr=gn.indptr, indices=gn.indices,
-                       weights=w.astype(np.float32))
-            gm = gw.permute(p.perm.astype(np.int32)).transpose()
-            n_pad = p.r_pad * p.b
-            indptr = np.concatenate([gm.indptr, np.full(
-                n_pad - gm.n, gm.indptr[-1], dtype=gm.indptr.dtype)])
-            with warnings.catch_warnings():  # "beta state"
-                warnings.simplefilter("ignore", UserWarning)
-                a = torch.sparse_csr_tensor(
-                    torch.from_numpy(indptr), torch.from_numpy(
-                        gm.indices.astype(np.int64)),
-                    torch.from_numpy(gm.weights), size=(n_pad, n_pad),
-                    check_invariants=False).to(DEVICE)
-            xf = x.reshape(-1, 1)
-            ref_y = (a @ xf).reshape(1, p.r_pad, p.b)
-            ker_y = tk.bsr_spmv(*args)
-            torch.cuda.synchronize()
-            err = float((ref_y - ker_y).abs().max())
+            csr = csr_yardstick(p, g, x)
+            err = float((csr().reshape(y_ell.shape) - y_ell).abs().max())
             if err > 1e-5:
                 raise AssertionError(f"CSR yardstick disagrees: {err}")
-            lib = cuda_ms(lambda: a @ xf)
-            del a
-        rec = dict(kernel="bsr_spmv", semiring=semiring, ms=ms,
-                   plain_ms=plain, bytes=nbytes,
-                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, library_ms=lib,
-                   tiles=int(p.nnz.sum()), r_pad=p.r_pad)
-        emit(phase="time", **rec)
-        out[("bsr_spmv", semiring)] = rec
-        # fused: one dense sweep (every valid row active) of the same plan
-        act = p.valid.any(dim=1)[None].contiguous()
+            lib = cuda_ms(csr)
+            lib_device = kernel_device_ms(csr)
+            del csr
+        nb = entry_bytes(index, 1)
+        ell_nb = spmv_bytes(p, 1)
+        plains = {"bsr_spmv": lambda: tref.bsr_spmv_ref(*ell_args),
+                  "bsr_spmv_compact": lambda: tref.bsr_spmv_compact_ref(
+                      index, x, semiring)}
+        for name, idx in (("bsr_spmv", None), ("bsr_spmv_compact", index)):
+            call = lambda idx=idx: tk.bsr_spmv(  # noqa: E731
+                *ell_args, index=idx)
+            rec = dict(kernel=name, semiring=semiring, ms=cuda_ms(call),
+                       device_ms=kernel_device_ms(call, KERNEL_KEYS[name]),
+                       plain_ms=cuda_ms(plains[name], reps=3, warmup=1),
+                       bytes=nb, bound_ms=nb / HBM_BYTES_PER_S * 1e3,
+                       ell_bytes=ell_nb,
+                       ell_bound_ms=ell_nb / HBM_BYTES_PER_S * 1e3,
+                       library_ms=lib, library_device_ms=lib_device,
+                       entries=int(index.pairs.shape[0]),
+                       tiles=int(p.nnz.sum()), r_pad=p.r_pad)
+            emit(phase="time", **rec)
+            out[(name, semiring)] = rec
+        # fused: one dense sweep (every valid row active) and a sparse
+        # frontier (5 % of the rows; the others exit at once)
         rule = "relax" if semiring == "min_plus" else "pagerank"
         sc = [torch.tensor(v, dtype=torch.float32) for v in
               (0.85, 1e-8, 1.0 / p.n)]
-        fargs = (p.vals, p.cols, p.nnz, x, x, p.valid, act, *sc, semiring,
-                 rule)
-        fms = cuda_ms(lambda: tk.bsr_spmv_fused(*fargs))
-        fplain = cuda_ms(lambda: tref.bsr_spmv_fused_ref(*fargs), reps=3,
-                         warmup=1)
-        fb = fused_bytes(p, 1, act[0])
-        rec = dict(kernel="bsr_spmv_fused", semiring=semiring, rule=rule,
-                   frontier="dense", ms=fms, plain_ms=fplain, bytes=fb,
-                   bound_ms=fb / HBM_BYTES_PER_S * 1e3, library_ms=None,
-                   active_rows=int(act.sum()))
-        emit(phase="time", **rec)
-        out[("bsr_spmv_fused", semiring)] = rec
-        # and a sparse frontier: 5 % of the rows, the others exit at once
-        act = (torch.rand((1, p.r_pad), generator=torch.Generator()
-                          .manual_seed(1)) < 0.05).to(p.device)
-        fargs = (p.vals, p.cols, p.nnz, x, x, p.valid, act, *sc, semiring,
-                 rule)
-        fms = cuda_ms(lambda: tk.bsr_spmv_fused(*fargs))
-        fb = fused_bytes(p, 1, act[0])
-        emit(phase="time", kernel="bsr_spmv_fused", semiring=semiring,
-             rule=rule, frontier="sparse", ms=fms, bytes=fb,
-             bound_ms=fb / HBM_BYTES_PER_S * 1e3,
-             active_rows=int(act.sum()))
+        sparse = (torch.rand((1, p.r_pad), generator=torch.Generator()
+                             .manual_seed(1)) < 0.05).to(p.device)
+        for frontier, act in (("dense", p.valid.any(dim=1)[None]
+                               .contiguous()), ("sparse", sparse)):
+            fargs = (p.vals, p.cols, p.nnz, x, x, p.valid, act, *sc,
+                     semiring, rule)
+            f_ell = tk.bsr_spmv_fused(*fargs)
+            f_c = tk.bsr_spmv_fused(*fargs, index=index)
+            torch.cuda.synchronize()
+            for a, b_ in zip(f_c, f_ell):
+                errs.exact("bsr_spmv_fused_compact", a, b_,
+                           f"the ELL kernel (full CA plan, {semiring}, "
+                           f"{frontier})")
+            nb = entry_bytes(index, 1, act[0], fused=True)
+            ell_nb = fused_bytes(p, 1, act[0])
+            plains = {"bsr_spmv_fused":
+                      lambda: tref.bsr_spmv_fused_ref(*fargs),
+                      "bsr_spmv_fused_compact":
+                      lambda: tref.bsr_spmv_fused_compact_ref(
+                          index, *fargs[3:])}
+            for name, idx in (("bsr_spmv_fused", None),
+                              ("bsr_spmv_fused_compact", index)):
+                call = lambda idx=idx: tk.bsr_spmv_fused(  # noqa: E731
+                    *fargs, index=idx)
+                rec = dict(
+                    kernel=name, semiring=semiring, rule=rule,
+                    frontier=frontier, ms=cuda_ms(call),
+                    device_ms=kernel_device_ms(call, KERNEL_KEYS[name]),
+                    plain_ms=(cuda_ms(plains[name], reps=3, warmup=1)
+                              if frontier == "dense" else None),
+                    bytes=nb, bound_ms=nb / HBM_BYTES_PER_S * 1e3,
+                    ell_bytes=ell_nb,
+                    ell_bound_ms=ell_nb / HBM_BYTES_PER_S * 1e3,
+                    library_ms=None, active_rows=int(act.sum()))
+                emit(phase="time", **rec)
+                out[(name, semiring, frontier)] = rec
         torch.cuda.empty_cache()
 
-    def entry(name, key, replaces, library):
-        r = out[(name, key)]
-        return {"name": name, "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/bsr_spmv.cu",
+    def entry(name, r, replaces):
+        src = SPMV_SOURCES[name.replace("_fused", "")]
+        return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": errs.max[name], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": "bytes", "library_ms": library}
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                "ell_bound_ms": r["ell_bound_ms"],
+                "library_ms": r["library_ms"]}
 
-    return [
-        entry("bsr_spmv", "plus_times", "src/repro/kernels/bsr_spmv.py:136",
-              out[("bsr_spmv", "plus_times")]["library_ms"]),
-        entry("bsr_spmv_fused", "plus_times",
-              "src/repro/kernels/bsr_spmv.py:324", None),
-    ]
+    return [entry(name, out[key], replaces) for name, key, replaces in (
+        ("bsr_spmv", ("bsr_spmv", "plus_times"),
+         "src/repro/kernels/bsr_spmv.py:136"),
+        ("bsr_spmv_fused", ("bsr_spmv_fused", "plus_times", "dense"),
+         "src/repro/kernels/bsr_spmv.py:324"),
+        ("bsr_spmv_compact", ("bsr_spmv_compact", "plus_times"),
+         "src/repro/kernels/bsr_spmv.py:136"),
+        ("bsr_spmv_fused_compact",
+         ("bsr_spmv_fused_compact", "plus_times", "dense"),
+         "src/repro/kernels/bsr_spmv.py:324"))]
 
 
 # -- the main path -----------------------------------------------------------
@@ -441,20 +578,35 @@ def kernel_device_ms(fn, name="", reps=20, warmup=5):
         e.count / reps)) for e in evs) / 1e3
 
 
-def device_share(name, fn):
-    """Device busy time over one query under torch.profiler, against the
-    query's wall (the profiler adds host overhead, so the idle share is an
-    upper bound)."""
+def profiled(fn, warmup=2):
+    """(wall seconds, the profiler's table) of one call of ``fn``: the
+    first ``warmup`` calls run under the profiler but are not kept, since
+    it misses launches right after it starts (as in
+    ``kernel_device_ms``); then one call is recorded and timed."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(warmup):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, top = device_busy(prof.key_averages())
+        prof.step()
+    return wall, prof.key_averages()
+
+
+def device_share(name, fn):
+    """Device busy time over one query under torch.profiler, after warm-up
+    calls, against the query's wall (the profiler adds host overhead, so
+    the idle share is an upper bound)."""
+    wall, events = profiled(fn)
+    busy, top = device_busy(events)
     emit(phase="profile", query=name, wall_s=wall,
          device_busy_s=busy if busy > 0 else "not measured",
          idle_share=1 - busy / wall if busy > 0 else "not measured",
@@ -490,6 +642,20 @@ def check_oracle(algo, g, values, src=None, tol=None):
                                       O.kcore_oracle(g, int(algo[5:])))
 
 
+def index_build(p) -> dict:
+    """Build a plan's compacted index (``Prepared.compact_index``, which
+    the first query would otherwise build inside its wall); its seconds,
+    entries and MB."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = p.compact_index()
+    torch.cuda.synchronize()
+    return dict(index_s=time.perf_counter() - t0,
+                index_entries=int(index.pairs.shape[0]),
+                index_mb=index.nbytes / 1e6)
+
+
 def main_path(errs, gen):
     import numpy as np
     import torch
@@ -513,7 +679,7 @@ def main_path(errs, gen):
              r_pad=p.r_pad, k_max=p.k_max, tiles=p.tiles_total,
              edges=p.edges_total, fill=p.edges_total / max(
                  p.tiles_total * p.b * p.b, 1.0),
-             vals_gb=p.vals.numel() * 4 / 1e9)
+             vals_gb=p.vals.numel() * 4 / 1e9, **index_build(p))
     emit(phase="graph", n=g.n, nnz=g.nnz, prepare_s=time.perf_counter() - t0,
          device_gb=torch.cuda.memory_allocated() / 1e9)
 
@@ -526,7 +692,8 @@ def main_path(errs, gen):
         row0 = p.r_pad // 3
         sl = slice(row0, row0 + SLICE_ROWS)
         compare_plan(p.vals[sl], p.cols[sl], p.nnz[sl], p.r_pad, semiring,
-                     errs, gen, "ca-full-slice", xs_rows=row0)
+                     errs, gen, "ca-full-slice", xs_rows=row0,
+                     index=p.compact_index().rows(sl))
     p = plans[("min_plus", "base", None)]
     garbage_check(p.vals[:SLICE_ROWS], p.cols[:SLICE_ROWS],
                   p.nnz[:SLICE_ROWS], p.r_pad, "min_plus", gen)
@@ -565,8 +732,12 @@ def main_path(errs, gen):
     launches = dict(tk.launch_counts)   # the main path ends here
     emit(phase="main_path_launches", **launches)
     for k, v in launches.items():
-        if v <= 0:
+        if "compact" in k and v <= 0:
             raise AssertionError(f"{k} was never launched on the main path")
+        if "compact" not in k and v != 0:
+            raise AssertionError(f"the ELL route's {k} launched {v} times "
+                                 f"on the main path; the engines take the "
+                                 f"compacted route")
     # the sync engine only: the async one issues ~20 torch ops per group
     # and 64 groups per sweep, more events than the profiler digests fast
     device_share("sssp/sync/fused", lambda: proc.sssp(
@@ -598,8 +769,11 @@ def main_path(errs, gen):
     # the power-law stand-in (load imbalance: one hub row sets K)
     gf = G.make_paper_graph("fb", scale=FB_SCALE, seed=0)
     pf = api.GraphProcessor(gf, b=32, num_clusters=64, device=DEVICE)
-    pf.prepare("min_plus")  # plans first: the query walls time queries
-    pf.prepare("plus_times", normalize="out_stochastic")
+    # plans and indexes first: the query walls time queries
+    for semiring, normalize in (("min_plus", None),
+                                ("plus_times", "out_stochastic")):
+        emit(phase="fb_prepare", plan=semiring, **index_build(
+            pf.prepare(semiring, normalize=normalize)))
     for mode, pol in (("sync", sync), ("async", asyn)):
         r = run_query(f"fb/sssp/{mode}/fused", lambda: pf.sssp(
             0, policy=pol.but(kernel=fused, max_sweeps=100_000)), tk)
@@ -608,10 +782,31 @@ def main_path(errs, gen):
         policy=sync.but(kernel=fused, tol=PR_TOL["fb"], max_sweeps=500)),
         tk)
     check_oracle("pagerank", gf, r.values, tol=PR_TOL["fb"])
+    # the hub rows: all four kernels against their plain versions on the
+    # fb plans (the compacted kernels walk a row of more than LONG_ROW
+    # entries one warp a row)
+    for semiring, normalize in (("min_plus", None),
+                                ("plus_times", "out_stochastic")):
+        pp = pf.prepare(semiring, normalize=normalize)
+        compare_plan(pp.vals, pp.cols, pp.nnz, pp.r_pad, semiring, errs,
+                     gen, "fb", index=pp.compact_index())
     pfk = pf.prepare("min_plus")
+    index = pfk.compact_index()
     emit(phase="fb_plan", n=gf.n, nnz=gf.nnz, r_pad=pfk.r_pad,
          k_max=pfk.k_max, tiles=pfk.tiles_total,
-         vals_gb=pfk.vals.numel() * 4 / 1e9)
+         vals_gb=pfk.vals.numel() * 4 / 1e9,
+         max_row_entries=int(index.row_ptr.diff().max()),
+         mean_row_entries=index.pairs.shape[0] / (pfk.r_pad * pfk.b),
+         long_rows=len(index.long_host))
+    # both routes on the hub rows: does one thread per row leave lanes idle?
+    x = torch.rand((1, pfk.r_pad, pfk.b), device=pfk.device)
+    nb = entry_bytes(index, 1)
+    for name, idx in (("bsr_spmv", None), ("bsr_spmv_compact", index)):
+        call = lambda idx=idx: tk.bsr_spmv(  # noqa: E731
+            pfk.vals, pfk.cols, pfk.nnz, x, "min_plus", index=idx)
+        emit(phase="fb_time", kernel=name, ms=cuda_ms(call),
+             device_ms=kernel_device_ms(call, KERNEL_KEYS[name]),
+             bytes=nb, bound_ms=nb / HBM_BYTES_PER_S * 1e3)
     return proc, g, launches
 
 
@@ -904,21 +1099,20 @@ def check_prefill_logits(cfg, model, toks):
 
 def decode_idle_share(cfg, model, cache, tok, pos, phase):
     """Device busy time over a few decode steps under torch.profiler,
-    against the steps' wall (the profiler adds host time, so the idle
-    share is an upper bound)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    after one unrecorded pass over the same steps, against the steps' wall
+    (the profiler adds host time, so the idle share is an upper
+    bound)."""
     from repro_torch.models import lm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def steps():
+        # the same positions each call: a warm-up call writes the cache
+        # slots the recorded one writes again
+        t = tok
         for i in range(DECODE_PROFILE_STEPS):
-            logits, cache = lm.decode_step(cfg, model, cache, tok, pos + i)
-            tok = logits.argmax(-1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
+            logits, _ = lm.decode_step(cfg, model, cache, t, pos + i)
+            t = logits.argmax(-1)
+
+    wall, events = profiled(steps, warmup=1)
     busy, top = device_busy(events)
     launches = sum(e.count for e in events if "LaunchKernel" in e.key)
     rec = dict(steps=DECODE_PROFILE_STEPS, wall_s=wall,
@@ -979,17 +1173,12 @@ def serving_metrics(cfg, model, toks, counts, phase):
     its first tokens on the host, which every request of the wave waits
     for."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import lm
     cache_len = PROMPT_LEN + NEW_TOKENS
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        lm.prefill(cfg, model, toks, cache_len=cache_len)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy, top = device_busy(prof.key_averages())
+    wall, events = profiled(
+        lambda: lm.prefill(cfg, model, toks, cache_len=cache_len),
+        warmup=1)
+    busy, top = device_busy(events)
     emit(phase=phase + "_prefill_profile", wall_s=wall,
          device_busy_s=busy if busy > 0 else "not measured",
          idle_share=1 - busy / wall if busy > 0 else "not measured",
@@ -1457,13 +1646,16 @@ def time_wkv6(gen, errs_max, launches):
 
 
 def build_all():
-    """The four libraries, one nvcc each, started together; then the
-    tensor-core attention library's ptxas report and SASS."""
+    """The five libraries, one nvcc each, started together; then the
+    compacted SpMV library's registers and spills, and the tensor-core
+    attention library's ptxas report and SASS."""
+    import re
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import bsr_spmv as tk
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wkv6 as twkv
-    libraries = [tk.LIBRARY, *fa.LIBRARIES.values(), twkv.LIBRARY]
+    libraries = [tk.LIBRARY, tk.LIBRARY_COMPACT, *fa.LIBRARIES.values(),
+                 twkv.LIBRARY]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as ex:
         paths = list(ex.map(lambda lib: lib.build(), libraries))
@@ -1471,6 +1663,12 @@ def build_all():
          libraries=[p.name for p in paths])
     for p in paths:
         print(p.with_suffix(".log").read_text(), flush=True)
+    log = tk.LIBRARY_COMPACT.path().with_suffix(".log").read_text()
+    emit(phase="build_compact", library=tk.LIBRARY_COMPACT.path().name,
+         registers=[int(n) for n in re.findall(r"Used (\d+) registers",
+                                               log)],
+         spill_bytes=[int(a) + int(b) for a, b in re.findall(
+             r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)])
     tensor_core_report(fa.LIBRARIES["tensor_cores"].path())
 
 

@@ -21,6 +21,12 @@ whether every query is done; the async engine also reads, once per group,
 whether any query's group is ready (so an idle group costs no launch).
 ``RunStats.host_syncs`` counts these reads.
 
+Every loop hands the SpMV its plan's compacted index of filled tile
+entries (``Prepared.compact_index``, built at the first query), so the
+kernels take their compacted route; the async loop hands each group a
+view of it.  The work counters still count whole tiles, as the
+reference's do.
+
 Counters of the fused and async paths accumulate in float32 on the
 device, sweep by sweep and group by group in the reference's order, so
 they equal the JAX package's bit for bit (and, like them, round once a
@@ -41,7 +47,7 @@ import torch
 from . import semiring as sr
 from .cluster import Clustering, cluster_graph, identity_clustering
 from .graph import Graph, to_bsr
-from ..kernels import ops
+from ..kernels import bsr_spmv, ops
 from ..kernels.spec import KernelSpec, as_kernel_spec
 from .. import resilience
 
@@ -88,10 +94,23 @@ class Prepared:
     clustering: Clustering
     tiles_total: float = 0.0
     edges_total: float = 0.0
+    # the compacted index of the filled tile entries, built at the first
+    # query (``compact_index``); not part of the plan's bytes, == or repr
+    compact: Optional[bsr_spmv.CompactIndex] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     @property
     def device(self) -> torch.device:
         return self.vals.device
+
+    def compact_index(self) -> Optional[bsr_spmv.CompactIndex]:
+        """The SpMV kernels' compacted index of this plan, built once on
+        the plan's device; None for a custom semiring, which runs the
+        plain versions over the ELL arrays."""
+        if self.compact is None and self.semiring in sr.BUILTIN:
+            self.compact = bsr_spmv.build_compact_index(
+                self.vals, self.cols, self.nnz, self.semiring)
+        return self.compact
 
     def to_blocks(self, x_flat: np.ndarray, pad: float) -> torch.Tensor:
         """(n,) values in OLD ids → (r_pad, B) block layout in new ids,
@@ -465,12 +484,14 @@ def _sync_loop(st: _Loop, semiring_name: str, apply_kind: str, spec):
     p = st.p
     ring = sr.get(semiring_name)
     spmv = ops.select_kernel("bsr_spmv", spec)
+    index = p.compact_index()
     x = st.x0.clone()
     while True:
         live = st.live()
         if not live.any():
             break
-        y = spmv(p.vals, p.cols, p.nnz, x, semiring=semiring_name)
+        y = spmv(p.vals, p.cols, p.nnz, x, semiring=semiring_name,
+                 index=index)
         x_new, imp = _apply(apply_kind, ring, y, x, p.valid, st.damping,
                             st.inv_n, st.tol)
         lq = torch.from_numpy(live).to(p.device)
@@ -493,6 +514,7 @@ def _sync_loop_fused(st: _Loop, changed0: torch.Tensor, semiring_name: str,
     nnz_f = p.nnz.float()
     bias = sr.rule(apply_kind).bias
     valid_rows = p.valid.any(dim=1)
+    index = p.compact_index()
     q = st.x0.shape[0]
     c = _new_counters(q, p.device)
     x, ch = st.x0.clone(), changed0.clone()
@@ -508,7 +530,8 @@ def _sync_loop_fused(st: _Loop, changed0: torch.Tensor, semiring_name: str,
         act = act & lq[:, None]
         x, ch, imp_any = spmv(p.vals, p.cols, p.nnz, x, x, p.valid, act,
                               st.damping, st.tol, st.inv_n,
-                              semiring=semiring_name, apply_kind=apply_kind)
+                              semiring=semiring_name, apply_kind=apply_kind,
+                              index=index)
         af = act.float()
         row_tiles = af * nnz_f
         c["tile_work"] += row_tiles.sum(dim=1)
@@ -537,6 +560,10 @@ def _async_loop(st: _Loop, changed0: torch.Tensor, semiring_name: str,
     valid_rows = p.valid.any(dim=1)
     first_touch = sr.rule(apply_kind).bias
     q, gb = st.x0.shape[0], p.gb
+    index = p.compact_index()
+    group_index = [None if index is None
+                   else index.rows(slice(g * gb, (g + 1) * gb))
+                   for g in range(p.s)]
     c = _new_counters(q, p.device)
     x, ch_prev = st.x0.clone(), changed0.clone()
     ran = torch.zeros((q, p.s), dtype=torch.bool, device=p.device)
@@ -568,14 +595,14 @@ def _async_loop(st: _Loop, changed0: torch.Tensor, semiring_name: str,
                 x_new, imp_rows, _ = spmv(
                     p.vals[sl], p.cols[sl], p.nnz[sl], x, xg, vg, act_rows,
                     st.damping, st.tol, st.inv_n, semiring=semiring_name,
-                    apply_kind=apply_kind)
+                    apply_kind=apply_kind, index=group_index[g])
                 arf = act_rows.float()
                 g_tiles = (arf * nnz_f[sl]).sum(dim=1)
                 g_edges = (arf * p.row_edges[sl]).sum(dim=1)
                 g_halo = (arf * p.row_ext[sl]).sum(dim=1)
             else:
                 y = spmv(p.vals[sl], p.cols[sl], p.nnz[sl], x,
-                         semiring=semiring_name)
+                         semiring=semiring_name, index=group_index[g])
                 x_new, imp = _apply(apply_kind, ring, y, xg, vg,
                                     st.damping, st.inv_n, st.tol)
                 x_new = torch.where(active[:, None, None], x_new, xg)

@@ -1,6 +1,11 @@
 # Hand-written CUDA kernels (sm_90a), one library per source:
 #   csrc/bsr_spmv.cu        — block-sparse semiring SpMV + the fused
-#                             frontier-masked sweep (graph engine)
+#                             frontier-masked sweep (graph engine) over the
+#                             ELL tile image: the ELL route
+#   csrc/bsr_spmv_compact.cu
+#                           — the same two over the filled tile entries
+#                             only (bsr_spmv.build_compact_index): the
+#                             compacted route, which the engines take
 #   csrc/flash_attention.cu — causal/windowed flash attention (LM prefill)
 #                             on the CUDA cores: f32, and bf16 at D != 64, 128
 #   csrc/flash_attention_sm90.cu

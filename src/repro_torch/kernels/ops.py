@@ -7,9 +7,13 @@ decides by the device of the tensors it is given:
   * CUDA tensors: ``impl="ref"`` and unfused ``impl="pallas"`` launch the
     hand-written CUDA SpMV (``bsr_spmv.bsr_spmv``; the engine applies the
     update rule in torch); fused ``impl="pallas"`` launches
-    ``bsr_spmv.bsr_spmv_fused``.
+    ``bsr_spmv.bsr_spmv_fused``.  Given ``index=`` (the plan's
+    ``CompactIndex``, or a group's ``rows(sl)`` view) they take the
+    compacted route (``csrc/bsr_spmv_compact.cu``), without it the ELL
+    route (``csrc/bsr_spmv.cu``).  The engines always pass the index.
   * CPU tensors: both impls run the plain torch versions in
-    ``kernels/ref.py`` (the wrappers themselves make that choice).
+    ``kernels/ref.py`` (the wrappers themselves make that choice), over
+    the index when one is given.
   * A registered custom semiring runs the plain versions on every device:
     the kernels know only the four built-in rings.
   * Attention is not in the registry: ``attention()`` below keys on the
@@ -32,12 +36,16 @@ or launch raises: there is no fallback.
 
 Registered call signatures (one contract per (op, fused) pair):
 
-  ("bsr_spmv", fused=False)  fn(vals, cols, nnz, x, semiring=...)
+  ("bsr_spmv", fused=False)  fn(vals, cols, nnz, x, semiring=...,
+                                index=None)
                              -> y (Q, R, B)
   ("bsr_spmv", fused=True)   fn(vals, cols, nnz, x, xg, valid, act_rows,
                                 damping, tol, inv_n, semiring=...,
-                                apply_kind=...)
+                                apply_kind=..., index=None)
                              -> (x_new, changed, improved_any)
+
+A custom semiring ignores ``index`` and runs ``ref.bsr_spmv_ref`` (or its
+fused form) over the ELL arrays.
 """
 
 from __future__ import annotations
@@ -82,20 +90,25 @@ def select_kernel(op: str, spec=None):
     return builder(spec)
 
 
-def _spmv(block_vals, block_cols, block_nnz, x, semiring="plus_times"):
+def _spmv(block_vals, block_cols, block_nnz, x, semiring="plus_times",
+          index=None):
     if semiring not in BUILTIN:
         return _ref.bsr_spmv_ref(block_vals, block_cols, block_nnz, x,
                                  semiring)
-    return _cuda.bsr_spmv(block_vals, block_cols, block_nnz, x, semiring)
+    return _cuda.bsr_spmv(block_vals, block_cols, block_nnz, x, semiring,
+                          index=index)
 
 
 def _spmv_fused(block_vals, block_cols, block_nnz, x, xg, valid, act_rows,
                 damping, tol, inv_n, semiring="min_plus",
-                apply_kind="relax"):
-    fn = (_cuda.bsr_spmv_fused if semiring in BUILTIN
-          else _ref.bsr_spmv_fused_ref)
-    return fn(block_vals, block_cols, block_nnz, x, xg, valid, act_rows,
-              damping, tol, inv_n, semiring, apply_kind)
+                apply_kind="relax", index=None):
+    if semiring not in BUILTIN:
+        return _ref.bsr_spmv_fused_ref(
+            block_vals, block_cols, block_nnz, x, xg, valid, act_rows,
+            damping, tol, inv_n, semiring, apply_kind)
+    return _cuda.bsr_spmv_fused(block_vals, block_cols, block_nnz, x, xg,
+                                valid, act_rows, damping, tol, inv_n,
+                                semiring, apply_kind, index=index)
 
 
 @register_kernel("bsr_spmv", "ref")

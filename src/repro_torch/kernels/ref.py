@@ -76,12 +76,71 @@ def bsr_spmv_ref(block_vals: torch.Tensor, block_cols: torch.Tensor,
     for k in range(k_max):
         part = mul(block_vals[None, :, k], xq[:, cols[:, k], None, :])
         acc = torch.where(live[None, :, k, None, None], add(acc, part), acc)
-    j = torch.arange(b, device=x.device)
+    y = _butterfly(acc, add)
+    return y[0] if single else y
+
+
+def _butterfly(acc, add):
+    """⊕ over the last axis by the CUDA kernels' xor butterfly (offsets
+    B/2 … 1); lane 0's value."""
+    b = acc.shape[-1]
+    j = torch.arange(b, device=acc.device)
     off = b // 2
     while off:
         acc = add(acc, acc[..., j ^ off])
         off //= 2
-    y = acc[..., 0]
+    return acc[..., 0]
+
+
+def bsr_spmv_compact_ref(index, x: torch.Tensor,
+                         semiring: str = "plus_times") -> torch.Tensor:
+    """``bsr_spmv_ref`` over a compacted index (``bsr_spmv.CompactIndex``)
+    in the compacted kernel's order, bit-equal to it and to
+    ``bsr_spmv_ref``.
+
+    Row v's partial for column j ⊕-accumulates its entries with that j in
+    entry order (ascending tile k), then the B partials of the row are
+    folded by the butterfly.  The entries the index leaves out are
+    ⊕-identity products, which change no partial on the inputs the ring
+    admits (finite x under plus_times, x ≥ 0 under max_min, x > -inf
+    under min_plus).  Built-in rings only.  x is (Q, C, B) or (C, B);
+    returns (Q, R, B) or (R, B) for the index's R row-blocks."""
+    if semiring not in _MUL:
+        raise ValueError(f"the compacted route implements {sorted(_MUL)}, "
+                         f"not {semiring!r}")
+    if semiring != index.semiring:
+        raise ValueError(f"the index leaves out {index.semiring!r}'s "
+                         f"identity; the call asks for {semiring!r}")
+    single = x.dim() == 2
+    xq = x[None] if single else x
+    mul, add = _MUL[semiring], _ADD[semiring]
+    b, dev = index.b, x.device
+    rp = index.row_ptr.long()
+    n_rows = rp.shape[0] - 1
+    e0, e1 = int(rp[0]), int(rp[-1])
+    src, val = index.src[e0:e1].long(), index.val[e0:e1]
+    row = torch.repeat_interleave(torch.arange(n_rows, device=dev),
+                                  rp.diff())
+    key = row * b + src % b                      # the (row, j) partial
+    # each entry's rank among its partial's entries, in entry order
+    order = torch.sort(key, stable=True).indices
+    count = torch.bincount(key, minlength=n_rows * b)
+    first = count.cumsum(0) - count
+    rank = torch.empty_like(key)
+    rank[order] = torch.arange(key.shape[0], device=dev) - first[key[order]]
+    # one pass per rank: a partial takes at most one entry per pass
+    by_rank = torch.sort(rank, stable=True).indices
+    xf = xq.reshape(xq.shape[0], -1)
+    acc = torch.full((xq.shape[0], n_rows * b), float(sr.get(semiring).zero),
+                     dtype=torch.float32, device=dev)
+    pos = 0
+    for n in torch.bincount(rank).tolist():
+        e = by_rank[pos:pos + n]
+        pos += n
+        k = key[e]
+        acc[:, k] = add(acc[:, k], mul(val[e], xf[:, src[e]]))
+    y = _butterfly(acc.view(xq.shape[0], n_rows, b), add)
+    y = y.view(xq.shape[0], n_rows // b, b)
     return y[0] if single else y
 
 
@@ -101,14 +160,32 @@ def bsr_spmv_fused_ref(block_vals, block_cols, block_nnz, x, xg, valid,
       x_new (Q, R, B), changed (Q, R) bool, conv (Q,) bool — conv[q] is
       changed[q].any().  With a 2-D ``x`` the query axis is dropped.
     """
+    return _fused_apply(
+        lambda xq: bsr_spmv_ref(block_vals, block_cols, block_nnz, xq,
+                                semiring),
+        x, xg, valid, act_rows, damping, tol, inv_n, semiring, apply_kind)
+
+
+def bsr_spmv_fused_compact_ref(index, x, xg, valid, act_rows, damping, tol,
+                               inv_n, semiring: str = "min_plus",
+                               apply_kind: str = "relax"):
+    """``bsr_spmv_fused_ref`` with y from ``bsr_spmv_compact_ref`` over
+    the index of THESE rows (a plan's index, or its ``rows(sl)`` view)."""
+    return _fused_apply(
+        lambda xq: bsr_spmv_compact_ref(index, xq, semiring),
+        x, xg, valid, act_rows, damping, tol, inv_n, semiring, apply_kind)
+
+
+def _fused_apply(spmv, x, xg, valid, act_rows, damping, tol, inv_n,
+                 semiring, apply_kind):
+    """y = spmv(x) → the engine's apply rule → the frontier mask."""
     # imported here: core.engine imports kernels.ops, which imports this
     # module
     from ..core.engine import _apply
     single = x.dim() == 2
     if single:
         x, xg, act_rows = x[None], xg[None], act_rows[None]
-    y = bsr_spmv_ref(block_vals, block_cols, block_nnz, x, semiring)
-    x_new, imp = _apply(apply_kind, sr.get(semiring), y, xg, valid,
+    x_new, imp = _apply(apply_kind, sr.get(semiring), spmv(x), xg, valid,
                         damping, inv_n, tol)
     x_out = torch.where(act_rows[:, :, None], x_new, xg)
     changed = act_rows & imp.any(dim=2)
