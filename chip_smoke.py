@@ -10,12 +10,13 @@ Phases, in order; any mismatch raises and the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      TF32 off for matmuls and cuDNN;
-  2. build the CUDA libraries from ``src/repro_torch/kernels/csrc`` (one
-     nvcc per source, started together; sm_90a) and print the build time
-     and ptxas's register report (the compacted SpMV library's registers
-     and spills as a line of their own); the tensor-core attention
-     library must show 0 spill bytes, no "wgmma ... serialized" warning
-     and HGMMA instructions in its SASS (``cuobjdump -sass``);
+  2. build the six CUDA libraries from ``src/repro_torch/kernels/csrc``
+     (one nvcc per source, started together; sm_90a) and print the build
+     time and ptxas's register report (the compacted SpMV library's
+     registers and spills as a line of their own); the two tensor-core
+     libraries must show 0 spill bytes, no "wgmma ... serialized" warning
+     and tensor-core instructions in their SASS (``cuobjdump -sass``):
+     HGMMA for attention, HMMA for the chunked WKV6;
   3. each SpMV kernel of both routes against its plain torch version on
      the card: the CA stand-in at scale 0.02 for the 4 semirings × B ∈
      {16, 32}, the fused kernels over 5 update rules × {empty, sparse,
@@ -70,23 +71,35 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      (operations at the bf16 tensor-core peak), the plain version's time
      and ``scaled_dot_product_attention``'s call and device times as the
      yardstick; then granite's weights are freed;
-  9. the WKV6 kernel against its plain version: the four shapes of
-     tests/test_wkv6_kernel.py, the rwkv6-1.6b prefill shape (B 4, T
-     1024, H 32, hs 64) in bf16 and f32 with per-head u and a nonzero
-     state, and a decode step in place; y and the final state each within
-     an elementwise and a relative-L2 limit, and two planted faults (u
-     dropped; the last step's decay skipped) must break them;
+  9. the recurrent WKV6 kernel against its plain version: the four
+     shapes of tests/test_wkv6_kernel.py, the rwkv6-1.6b prefill shape
+     (B 4, T 1024, H 32, hs 64) in bf16 (through the module's launcher,
+     since the route sends it to the chunked kernel) and f32 with
+     per-head u and a nonzero state, and a decode step in place; y and
+     the final state each within an elementwise and a relative-L2 limit,
+     and two planted faults (u dropped; the last step's decay skipped)
+     must break them; then the chunked kernel against both plain
+     versions, the chunked one (y within one bf16 step, the state within
+     1e-5 relative L2) and the recurrent one (the bf16 limits, y and the
+     state), at the prefill shape, extreme decays with zeros, T 777, T
+     128, strided slices, and a decode step after it in place; three
+     planted faults (u dropped, the last decay skipped, the diagonal
+     blocks decayed one step too far) must fail, and two calls must give
+     the same bits;
  10. RWKV-6 serving: rwkv6-1.6b (24 layers, d_model 2048, 32 heads of
      64, 1.60 B parameters, random from seed 0 with the constant leaves
      drawn around their init values, bf16) through the same traffic as
-     granite; ``launch_counts["wkv6"]`` is 24 x (prefills + decode steps);
+     granite; ``launch_counts["wkv6"]`` is 24 x (prefills + decode steps),
+     ``["wkv6_chunked"]`` 24 x prefills and ``["wkv6_recurrent"]`` 24 x
+     decode steps;
      the first wave's tokens equal the static batch's; one wave's prefill
      logits against the same model with the plain WKV6, with the weights
      upcast to f32 (the gate, 1e-4) and in bf16, beside a dropped u in
      every layer; the serving metrics as for granite;
- 11. the WKV6 kernel's time at the prefill shape and at a decode step,
-     its bound (operations at the f32 CUDA-core peak, or bytes) and the
-     plain version's time (no library call computes WKV6);
+ 11. both WKV6 kernels' times at the prefill shape and the recurrent
+     one's at a decode step, each beside its bound (bytes, or operations
+     at the peak of its units: the f32 CUDA cores, the bf16 tensor cores)
+     and its plain version's time (no library call computes WKV6);
  12. a JSON line with every kernel; the last line is
      ``{"ok": true, "device": {...}}``.
 
@@ -1333,17 +1346,34 @@ WKV_REL_L2 = {"bfloat16": 1e-2, "float32": 1e-5}
 RWKV_LOGIT_REL_TOL = {"bfloat16": 1e-1, "float32": 1e-4}
 
 
-def wkv6_bound(b, t, h, hs, elem):
-    """Least time for one call: the operations the function needs at the
-    f32 CUDA-core peak, or r, k, v, w read, y written, u read and the f32
-    state read and written once at 3.35 TB/s, whichever is larger.  Per
-    step and head the function needs 5·hs² + 5·hs operations: r·S (2·hs²)
-    and S ← w·S + kᵀv (3·hs²), and the u term folded into one dot
-    product, y_j += v_j · Σ_i r_i u_i k_i (3·hs, then 2·hs)."""
-    n_ops = (5 * hs * hs + 5 * hs) * b * h * t
+def wkv6_ops(b, t, h, hs, path):
+    """The operations one call needs in the form ``path`` computes.
+
+    recurrent: per step and head 5·hs² + 5·hs: r·S (2·hs²) and S ← w·S +
+    kᵀv (3·hs²), and the u term folded into one dot product, y_j += v_j ·
+    Σ_i r_i u_i k_i (3·hs, then 2·hs).  chunked: per sub-chunk of 16
+    steps and head, (r E) S and (k F)ᵀ V (2·16·hs² each), A V over A's
+    lower triangle (16·17·hs) and A's 136 entries (2·hs each), without
+    the kernel's split products (the function needs one)."""
+    if path == "recurrent":
+        return (5 * hs * hs + 5 * hs) * b * h * t
+    sub = 16
+    per_sub = 4 * sub * hs * hs + sub * (sub + 1) * hs \
+        + sub * (sub + 1) // 2 * 2 * hs
+    return per_sub * b * h * -(-t // sub)
+
+
+def wkv6_bound(b, t, h, hs, elem, path):
+    """Least time for one call: r, k, v, w read, y written, u read and the
+    f32 state read and written once at 3.35 TB/s, or the operations
+    (``wkv6_ops``) at the peak of the units that route's kernel computes
+    on, whichever is larger: the f32 CUDA cores for the recurrent kernel,
+    the bf16 tensor cores for the chunked one."""
+    n_ops = wkv6_ops(b, t, h, hs, path)
     n_bytes = 5 * b * t * h * hs * elem + 2 * b * h * hs * hs * 4 \
         + h * hs * 4
-    t_ops, t_bytes = n_ops / F32_PEAK_FLOPS, n_bytes / HBM_BYTES_PER_S
+    peak = F32_PEAK_FLOPS if path == "recurrent" else BF16_PEAK_FLOPS
+    t_ops, t_bytes = n_ops / peak, n_bytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", n_ops, n_bytes)
 
@@ -1363,16 +1393,18 @@ def wkv6_inputs(gen, b, t, h, hs, dtype, model_like=True):
     return [x.to(dtype) for x in (r, k, v, w)] + [u.to(dtype), s0]
 
 
-def _wkv_check(got, want, dtype, what, part) -> float:
+def _wkv_check(got, want, dtype, what, part, key=None) -> float:
     """Hold one output (y or the state) of the kernel against the plain
-    version's; returns max |Δ|."""
+    version's; returns max |Δ|.  The limits are ``key``'s, by default
+    the dtype's for y and f32's for the state."""
     import torch
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"wkv6 {what} {part}: {got.shape} {got.dtype}"
                              f" vs {want.shape} {want.dtype}")
     g, w = got.float(), want.float()
-    key = "float32" if part == "state" else str(dtype).split(".")[-1]
+    if key is None:
+        key = "float32" if part == "state" else str(dtype).split(".")[-1]
     tol, rel_tol = WKV_TOL[key], WKV_REL_L2[key]
     diff = (g - w).abs()
     rms = float(w.square().mean().sqrt())
@@ -1389,9 +1421,9 @@ def _wkv_check(got, want, dtype, what, part) -> float:
     return err
 
 
-def _must_fail(got, want, dtype, what, part):
+def _must_fail(got, want, dtype, what, part, key=None):
     try:
-        _wkv_check(got, want, dtype, "planted fault: " + what, part)
+        _wkv_check(got, want, dtype, "planted fault: " + what, part, key)
     except AssertionError:
         return
     raise AssertionError(f"a planted fault ({what}) passed the wkv6 "
@@ -1423,10 +1455,12 @@ def wkv6_vs_plain(gen):
         r, k, v, w, u, s0 = wkv6_inputs(gen, PROMPTS, PROMPT_LEN, WKV_HEADS,
                                         WKV_HS, dtype)
         state = s0.clone()
-        y = twkv.wkv6_heads(r, k, v, w, u, state)
+        # the route sends the bf16 prefill to the chunked kernel: the
+        # recurrent one is held here through the module's launcher
+        y = twkv._launch(r, k, v, w, u, state, state, path="recurrent")
         want_y, want_s = tref.wkv6_heads_ref(r, k, v, w, u, s0)
         what = f"rwkv6 prefill B {PROMPTS} T {PROMPT_LEN} H {WKV_HEADS} " \
-            f"hs {WKV_HS} {str(dtype)[6:]}"
+            f"hs {WKV_HS} {str(dtype)[6:]} recurrent"
         worst = max(worst, _wkv_check(y, want_y, dtype, what, "y"),
                     _wkv_check(state, want_s, dtype, what, "state"))
         if dtype == torch.bfloat16:
@@ -1447,6 +1481,164 @@ def wkv6_vs_plain(gen):
         worst = max(worst, _wkv_check(y1, want_y1, dtype, what, "y"),
                     _wkv_check(state, want_s1, dtype, what, "state"))
     emit(phase="wkv6_vs_plain", ok=True, cases=8, max_abs_err=worst)
+    return worst
+
+
+def _one_bf16_step(got, want, what, part) -> float:
+    """Chunked kernel against its plain version, y: every element within
+    one bf16 step of max(|plain|, rms(plain) / 32), since the two round to
+    bf16 f32 sums that differ only in the order inside the matrix
+    products (the rms term: an output that cancels to near 0 keeps its
+    terms' rounding).  Returns max |Δ|."""
+    import torch
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    rms = float(w.square().mean().sqrt())
+    step = 2.0 ** -7 * torch.clamp(w.abs(), min=rms / 32)
+    diff = (g - w).abs()
+    err = float(diff.max())
+    emit(phase="wkv6_chunked_case", case=what, part=part, vs="chunked plain",
+         max_abs_err=err, worst_in_bf16_steps=float((diff / step).max()))
+    if got.dtype != want.dtype or not bool((diff <= step).all()):
+        raise AssertionError(f"wkv6 chunked != its plain version ({what}, "
+                             f"{part}): max |Δ| {err}")
+    return err
+
+
+def _state_rel(got, want, what) -> None:
+    """Chunked kernel's state against its plain version: relative L2
+    within 1e-5 (f32 sums in another order)."""
+    import torch
+    torch.cuda.synchronize()
+    rel = float((got - want).norm() / want.norm())
+    emit(phase="wkv6_chunked_case", case=what, part="state",
+         vs="chunked plain", rel_l2=rel, rel_l2_tol=1e-5)
+    if not rel <= 1e-5:
+        raise AssertionError(f"wkv6 chunked state != its plain version "
+                             f"({what}): relative L2 {rel}")
+
+
+def _diag_reads_c_i(r, k, w, u):
+    """A planted fault: ``ref.wkv6_diag_block`` with the diagonal blocks
+    decayed by e^{c_i − c_j}, one w too many."""
+    sub = r.shape[-2]
+    a = r.new_zeros(r.shape[:-1] + (sub,))
+    kd = k.clone()
+    for i in range(sub):
+        kd[..., :i, :] *= w[..., i, None, :]
+        a[..., i, :i] = (r[..., i, None, :] * kd[..., :i, :]).sum(-1)
+        a[..., i, i] = (r[..., i, :] * u * k[..., i, :]).sum(-1)
+    return a
+
+
+def wkv6_chunked_vs_plain(gen):
+    """The chunked WKV6 kernel (bf16, hs 64, T >= 128) against both plain
+    versions: (a) ``wkv6_chunked_heads_ref``, its own algebra and
+    blocking: y within one bf16 step, the state within 1e-5 relative L2;
+    (b) the recurrent ``wkv6_heads_ref``: y and the state within the
+    bf16 limits, WKV_TOL and WKV_REL_L2["bfloat16"].  The state is held
+    to bf16's limits here, not f32's: the kernel rounds its operands to
+    bf16 (a high part and a remainder) before the products.  Cases: the
+    rwkv6 prefill shape with model-like decays and a nonzero s0; extreme
+    decays (w from 1e-6 to 1, one in 16 set to 0); ragged T 777; T 128,
+    the route's threshold; r, k, v, w as strided slices of one buffer;
+    the state carried in place, then one decode step on the recurrent
+    kernel.  Three planted faults in the chunked plain version must fail
+    (b): u dropped (y), the last decay skipped (the state), the diagonal
+    blocks decayed by e^{c_i − c_j} (y).  Two calls give the same bits.
+    Returns the largest |kernel − chunked plain| over y."""
+    import torch
+    from repro_torch.kernels import ref as tref
+    from repro_torch.kernels import wkv6 as twkv
+    bf16 = torch.bfloat16
+    worst = 0.0
+
+    def both(args, state, y, what):
+        r, k, v, w, u, s0 = args
+        if twkv.route(r.dtype, r.shape[1], r.shape[3]) != "chunked":
+            raise AssertionError(f"{what}: not on the chunked route")
+        cy, cs = tref.wkv6_chunked_heads_ref(r, k, v, w, u, s0)
+        err = _one_bf16_step(y, cy, what, "y")
+        _state_rel(state, cs, what)
+        del cy, cs
+        ry, rs = tref.wkv6_heads_ref(r, k, v, w, u, s0)
+        _wkv_check(y, ry, bf16, what + " vs recurrent plain", "y")
+        _wkv_check(state, rs, bf16, what + " vs recurrent plain", "state",
+                   key="bfloat16")
+        return err
+
+    def run(args):
+        state = args[5].clone()
+        before = dict(twkv.launch_counts)
+        y = twkv.wkv6_heads(*args[:5], state)
+        if twkv.launch_counts["wkv6_chunked"] != \
+                before["wkv6_chunked"] + 1:
+            raise AssertionError("the chunked kernel did not launch")
+        return y, state
+
+    prefill = wkv6_inputs(gen, PROMPTS, PROMPT_LEN, WKV_HEADS, WKV_HS, bf16)
+    y, state = run(prefill)
+    worst = max(worst, both(prefill, state, y, "rwkv6 prefill"))
+    y2, state2 = run(prefill)
+    if not (torch.equal(y, y2) and torch.equal(state, state2)):
+        raise AssertionError("wkv6 chunked: two calls gave other bits")
+    emit(phase="wkv6_chunked_deterministic", ok=True)
+    del y2, state2
+
+    # the planted faults, against the recurrence on the prefill case
+    r, k, v, w, u, s0 = prefill
+    ry, rs = tref.wkv6_heads_ref(r, k, v, w, u, s0)
+    no_u, _ = tref.wkv6_chunked_heads_ref(r, k, v, w, torch.zeros_like(u),
+                                          s0)
+    _must_fail(no_u, ry, bf16, "chunked, u dropped", "y")
+    w_skip = w.clone()
+    w_skip[:, -1] = 1.0
+    _, skip_s = tref.wkv6_chunked_heads_ref(r, k, v, w_skip, u, s0)
+    _must_fail(skip_s, rs, bf16, "chunked, last decay skipped", "state",
+               key="bfloat16")
+    saved = tref.wkv6_diag_block
+    tref.wkv6_diag_block = _diag_reads_c_i
+    try:
+        diag_y, _ = tref.wkv6_chunked_heads_ref(r, k, v, w, u, s0)
+    finally:
+        tref.wkv6_diag_block = saved
+    _must_fail(diag_y, ry, bf16, "chunked, diagonal reads c_i", "y")
+    del prefill, ry, rs, no_u, skip_s, diag_y, w_skip
+
+    extreme = wkv6_inputs(gen, 2, 512, 8, WKV_HS, bf16)
+    x = torch.rand(extreme[3].shape, generator=gen, device=DEVICE)
+    zero = torch.rand(extreme[3].shape, generator=gen, device=DEVICE) < 1 / 16
+    extreme[3] = torch.where(zero, 0.0, 10 ** (-6 * x)).to(bf16)
+    for what, args in (
+            ("extreme decays", extreme),
+            ("ragged T 777", wkv6_inputs(gen, 2, 777, 8, WKV_HS, bf16)),
+            ("T 128", wkv6_inputs(gen, PROMPTS, 128, WKV_HEADS, WKV_HS,
+                                  bf16))):
+        y, state = run(args)
+        worst = max(worst, both(args, state, y, what))
+
+    # strided slices of one (B, T, 4, H, hs) buffer, in the model's layout
+    b, t, h = 2, 300, 8
+    r, k, v, w, u, s0 = wkv6_inputs(gen, b, t, h, WKV_HS, bf16)
+    buf = torch.stack([r, k, v, w], 2)
+    args = [buf[:, :, i] for i in range(4)] + [u, s0]
+    y, state = run(args)
+    worst = max(worst, both(args, state, y, "strided slices"))
+
+    # the state carried in place, then one decode step (recurrent kernel)
+    r1, k1, v1, w1, _, _ = wkv6_inputs(gen, b, 1, h, WKV_HS, bf16)
+    before = state.clone()
+    n_rec = twkv.launch_counts["wkv6_recurrent"]
+    y1 = twkv.wkv6_heads(r1, k1, v1, w1, args[4], state)
+    if twkv.launch_counts["wkv6_recurrent"] != n_rec + 1:
+        raise AssertionError("the decode step did not take the recurrent "
+                             "kernel")
+    want_y1, want_s1 = tref.wkv6_heads_ref(r1, k1, v1, w1, args[4], before)
+    what = "decode step after a chunked prefill, in place"
+    _wkv_check(y1, want_y1, bf16, what, "y")
+    _wkv_check(state, want_s1, bf16, what, "state")
+    emit(phase="wkv6_chunked_vs_plain", ok=True, cases=6, faults=3,
+         max_abs_err=worst)
     return worst
 
 
@@ -1521,6 +1713,7 @@ def check_rwkv_logits(cfg, model, toks):
     then the bf16 model's own distance from its f32 upcast."""
     import copy
     import torch
+    from repro_torch.kernels import wkv6 as twkv
     from repro_torch.models import lm
 
     def rel(a, b):
@@ -1541,6 +1734,8 @@ def check_rwkv_logits(cfg, model, toks):
         sound = rel(other, want)
         finite = bool(torch.isfinite(got).all())
         emit(phase="rwkv_logits", dtype=dt, rel_l2=err,
+             route=twkv.route(getattr(torch, dt), toks.shape[1],
+                              cfg.rwkv_head_size),
              tol=RWKV_LOGIT_REL_TOL[dt], dropped_u_rel_l2=fault,
              other_sum_order_rel_l2=sound,
              max_abs=float((got.float() - want.float()).abs().max()),
@@ -1596,6 +1791,18 @@ def rwkv_path():
             f"wkv6 launched {launches['wkv6']} times, expected "
             f"{cfg.num_layers} x ({prefills} prefills + {decode_steps} "
             f"decode steps) = {want}")
+    # every prefill (T = PROMPT_LEN) on its route, every decode step (T =
+    # 1) on the recurrent kernel
+    prefill_path = twkv.route(getattr(torch, cfg.compute_dtype), PROMPT_LEN,
+                              cfg.rwkv_head_size)
+    per_route = {"wkv6_chunked": 0, "wkv6_recurrent":
+                 cfg.num_layers * decode_steps}
+    per_route["wkv6_" + prefill_path] += cfg.num_layers * prefills
+    for key, n in per_route.items():
+        if launches[key] != n:
+            raise AssertionError(f"{key} launched {launches[key]} times, "
+                                 f"expected {n}")
+    emit(phase="rwkv_routes", prefill_route=prefill_path, **per_route)
 
     toks = torch.as_tensor(prompts[:PROMPTS], dtype=torch.long,
                            device=DEVICE)
@@ -1606,56 +1813,70 @@ def rwkv_path():
 
 
 def time_wkv6(gen, errs_max, launches):
-    """The kernel at the rwkv6-1.6b prefill shape (B 4, T 1024, H 32, hs
-    64, bf16) and at a decode step (T 1): its time (CUDA events around a
-    call, median of 20; and the kernel's own device time from the
-    profiler, which at a decode step is far less), its bound and the
-    plain version's time.  No single PyTorch call computes WKV6, so
-    there is no library time."""
+    """Both WKV6 kernels at the rwkv6-1.6b prefill shape (B 4, T 1024, H
+    32, hs 64, bf16), the recurrent one also at a decode step (T 1): each
+    call's time (CUDA events around a call, median of 20), the kernel's
+    own device time (profiler; at a decode step far less than a call),
+    its bound and its plain version's time.  At the prefill shape the
+    route takes the chunked kernel; the recurrent one is reached through
+    the module's launcher.  No single PyTorch call computes WKV6, so
+    there is no library time.  Returns the kernels line's two rows;
+    ``errs_max`` is (recurrent, chunked) max |kernel − plain|."""
     import torch
     from repro_torch.kernels import ref as tref
     from repro_torch.kernels import wkv6 as twkv
+    plain = {"recurrent": tref.wkv6_heads_ref,
+             "chunked": tref.wkv6_chunked_heads_ref}
+    kernel = {"recurrent": "wkv6_kernel", "chunked": "wkv6_chunked_kernel"}
     out = {}
-    for t in (PROMPT_LEN, 1):
+    for t, path in ((PROMPT_LEN, "chunked"), (PROMPT_LEN, "recurrent"),
+                    (1, "recurrent")):
         r, k, v, w, u, s0 = wkv6_inputs(gen, PROMPTS, t, WKV_HEADS, WKV_HS,
                                         torch.bfloat16)
         u = u.float()  # the wrapper's cast to f32 is then no launch
-        ms = cuda_ms(lambda: twkv.wkv6_heads(r, k, v, w, u, s0), reps=20)
-        plain = cuda_ms(lambda: tref.wkv6_heads_ref(r, k, v, w, u, s0),
-                        reps=3 if t > 1 else 20, warmup=1)
-        device_ms = kernel_device_ms(
-            lambda: twkv.wkv6_heads(r, k, v, w, u, s0), "wkv6_kernel")
+
+        def call():
+            return twkv._launch(r, k, v, w, u, s0, s0, path=path)
+        ms = cuda_ms(call, reps=20)
+        plain_ms = cuda_ms(lambda: plain[path](r, k, v, w, u, s0),
+                           reps=3 if t > 1 else 20, warmup=1)
+        device_ms = kernel_device_ms(call, kernel[path])
         bound_ms, bound_by, n_ops, n_bytes = wkv6_bound(
-            PROMPTS, t, WKV_HEADS, WKV_HS, 2)
-        out[t] = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms,
-                      bound_by=bound_by)
-        emit(phase="time", kernel="wkv6",
+            PROMPTS, t, WKV_HEADS, WKV_HS, 2, path)
+        out[t, path] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+        emit(phase="time", kernel="wkv6", path=path,
              shape=[PROMPTS, t, WKV_HEADS, WKV_HS], dtype="bfloat16",
-             ms=ms, device_ms=device_ms, plain_ms=plain, library_ms=None,
-             bound_ms=bound_ms,
-             bound_by=bound_by, flops=n_ops, bytes=n_bytes,
-             gflops=n_ops / ms / 1e6)
-    r = out[PROMPT_LEN]
-    return {"name": "wkv6", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+             ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
+             bound_ms=bound_ms, bound_by=bound_by, flops=n_ops,
+             bytes=n_bytes, gflops=n_ops / ms / 1e6)
+    rows = []
+    for path, source, err in (("recurrent", "wkv6.cu", errs_max[0]),
+                              ("chunked", "wkv6_chunked.cu", errs_max[1])):
+        rec = out[PROMPT_LEN, path]
+        rows.append({
+            "name": "wkv6", "path": path, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + source,
             "replaces": "src/repro/kernels/wkv6.py:70",
-            "launches": launches["wkv6"], "max_abs_err": errs_max,
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None}
+            "launches": launches["wkv6_" + path], "max_abs_err": err,
+            "ms": rec["ms"], "device_ms": rec["device_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None})
+    return rows
 
 
 def build_all():
-    """The five libraries, one nvcc each, started together; then the
-    compacted SpMV library's registers and spills, and the tensor-core
-    attention library's ptxas report and SASS."""
+    """The six libraries, one nvcc each, started together; then the
+    compacted SpMV library's registers and spills, and the ptxas report
+    and SASS of the two tensor-core libraries (attention: HGMMA; chunked
+    WKV6: HMMA)."""
     import re
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import bsr_spmv as tk
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wkv6 as twkv
     libraries = [tk.LIBRARY, tk.LIBRARY_COMPACT, *fa.LIBRARIES.values(),
-                 twkv.LIBRARY]
+                 twkv.LIBRARY, twkv.LIBRARY_CHUNKED]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as ex:
         paths = list(ex.map(lambda lib: lib.build(), libraries))
@@ -1669,14 +1890,16 @@ def build_all():
                                                log)],
          spill_bytes=[int(a) + int(b) for a, b in re.findall(
              r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)])
-    tensor_core_report(fa.LIBRARIES["tensor_cores"].path())
+    tensor_core_report(fa.LIBRARIES["tensor_cores"].path(), "HGMMA")
+    tensor_core_report(twkv.LIBRARY_CHUNKED.path(), "HMMA")
 
 
-def tensor_core_report(lib):
+def tensor_core_report(lib, instruction):
     """Registers and spill bytes of each kernel from ptxas's log, and the
-    HGMMA (wgmma) instructions in the SASS.  Raises on a spill, on
-    ptxas's "wgmma ... serialized" warning, on nvcc's warning of a
-    variable used before it is set, or on a SASS without HGMMA."""
+    tensor-core instructions in the SASS: HGMMA (wgmma) or HMMA
+    (mma.sync).  Raises on a spill, on ptxas's "wgmma ... serialized"
+    warning, on nvcc's warning of a variable used before it is set, or on
+    a SASS without the instruction."""
     import re
     from repro_torch.kernels.cuda_lib import nvcc
     log = lib.with_suffix(".log").read_text()
@@ -1686,17 +1909,17 @@ def tensor_core_report(lib):
     sass = subprocess.run(
         [str(pathlib.Path(nvcc()).with_name("cuobjdump")), "-sass",
          str(lib)], capture_output=True, text=True, check=True).stdout
-    hgmma = len(re.findall(r"\bHGMMA\.", sass))
+    count = len(re.findall(rf"\b{instruction}\.", sass))
     serialized = [ln for ln in log.splitlines()
                   if "wgmma" in ln and "serialized" in ln]
     unset = [ln for ln in log.splitlines()
              if "before its value is set" in ln]
     emit(phase="build_tensor_cores", library=lib.name, registers=registers,
-         spill_bytes=spills, hgmma_instructions=hgmma,
+         spill_bytes=spills, instruction=instruction, instructions=count,
          serialized_warnings=serialized, unset_warnings=unset)
-    if not registers or any(spills) or serialized or unset or hgmma == 0:
-        raise AssertionError(f"{lib.name}: spills {spills}, HGMMA {hgmma}, "
-                             f"warnings {serialized + unset}")
+    if not registers or any(spills) or serialized or unset or count == 0:
+        raise AssertionError(f"{lib.name}: spills {spills}, {instruction} "
+                             f"{count}, warnings {serialized + unset}")
 
 
 def graph_phases():
@@ -1749,14 +1972,15 @@ def lm_phases():
 
 
 def rwkv_phases():
-    """Slice 3: the WKV6 kernel against its plain version, rwkv6-1.6b
-    served at full width and depth, the kernel's times; returns its
-    kernels line entry."""
+    """Slice 3: both WKV6 kernels against their plain versions,
+    rwkv6-1.6b served at full width and depth, the kernels' times;
+    returns their kernels line entries."""
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     err = wkv6_vs_plain(gen)
+    chunked_err = wkv6_chunked_vs_plain(gen)
     launches, _ = rwkv_path()
-    return [time_wkv6(gen, err, launches)]
+    return time_wkv6(gen, (err, chunked_err), launches)
 
 
 def setup():

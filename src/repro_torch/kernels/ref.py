@@ -312,6 +312,104 @@ def wkv6_heads_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.transpose(0, 1).to(r.dtype), s
 
 
+WKV_SUB = 16  # steps per sub-chunk of the chunked kernel
+
+
+def wkv6_diag_block(r, k, w, u):
+    """The diagonal (WKV_SUB, WKV_SUB) blocks of the chunked form, element
+    by element in f32: A[i, j] = Σ_d r_id k_jd Π_{j<s<i} w_sd for j < i,
+    A[i, i] = Σ_d r_id u_d k_id, 0 above.  r, k, w (..., WKV_SUB, hs) f32,
+    u broadcastable to r[..., 0, :].  The decay e^{c_{i−1} − c_j} is the
+    product of the w strictly between the two steps, taken as the kernel
+    takes it: k_j carried down the sub-chunk and multiplied by w_i once
+    row i has read it."""
+    sub = r.shape[-2]
+    a = r.new_zeros(r.shape[:-1] + (sub,))
+    kd = k.clone()
+    for i in range(sub):
+        a[..., i, :i] = (r[..., i, None, :] * kd[..., :i, :]).sum(-1)
+        a[..., i, i] = (r[..., i, :] * u * k[..., i, :]).sum(-1)
+        kd[..., :i, :] *= w[..., i, None, :]
+    return a
+
+
+def _bf16_split(x):
+    """x ≈ hi + lo, both bf16 (held in f32): hi = bf16(x), lo = bf16(x −
+    hi), 16 significant bits between them."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _mm_split(a, b):
+    """a @ b as the kernel forms it from bf16 operands: a_hi b_hi + a_lo
+    b_hi + a_hi b_lo, in f32 (a_lo b_lo, below 2⁻¹⁶ of the product, is
+    left out)."""
+    ah, al = _bf16_split(a)
+    bh, bl = _bf16_split(b)
+    return ah @ bh + al @ bh + ah @ bl
+
+
+def wkv6_chunked_heads_ref(r: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+                           s0: torch.Tensor):
+    """The chunked form of the recurrence in the chunked CUDA kernel's
+    blocking: the plain version of ``csrc/wkv6_chunked.cu``.
+
+    Arguments and result as ``wkv6_heads_ref`` (here any hs and T).  Per
+    sub-chunk of WKV_SUB steps (the last one padded with r = k = v = 0,
+    w = 1), with c_t = Σ_{s≤t} log w_s, every decay e^{c_a − c_b} (a ≥ b)
+    is the product of the w between the two steps, each ≤ 1: nothing
+    overflows, and w = 0 gives exact zeros.  For step i of the sub-chunk,
+    E_i is the product of its w before i, F_i of those after i, G of all
+    of them (each left to right from 1).  With S the state at the
+    sub-chunk's start,
+
+        y  = (r E) S + A V,      A = ``wkv6_diag_block`` (0 above i = j),
+        S ← G ⊙_rows S + (k F)ᵀ V.
+
+    A key j of an earlier sub-chunk reaches row i through S: its decay
+    factors through every sub-chunk boundary between them, each factor
+    ≤ 1.  With f32 inputs that is all.  With bf16 inputs every matrix
+    product is formed from bf16 operands, as the kernel forms it on the
+    tensor cores: each f32 operand split into a bf16 high part and a
+    bf16 remainder (``_mm_split``; v is bf16 already), sums in f32, the
+    state carried in f32, y rounded to bf16 once.  So against the
+    recurrence only the order of the sums and the 2⁻¹⁶ operand residue
+    differ, and against the kernel only the order inside its matrix
+    products and of the sum over d."""
+    b, n, h, hs = r.shape
+    sub = WKV_SUB
+    mm = _mm_split if r.dtype == torch.bfloat16 else torch.matmul
+    pad = -n % sub
+    ns = (n + pad) // sub
+
+    def subs(x, fill):  # (B, T, H, hs) → (B, H, ns, sub, hs) f32
+        x = torch.nn.functional.pad(x.float().transpose(1, 2),
+                                    (0, 0, 0, pad), value=fill)
+        return x.reshape(b, h, ns, sub, hs)
+
+    rr, kk, vv = (subs(x, 0.0) for x in (r, k, v))
+    ww = subs(w, 1.0)
+    e = [torch.ones_like(ww[..., 0, :])]
+    for t in range(sub):
+        e.append(e[-1] * ww[..., t, :])
+    g = e.pop()                                       # G (B, H, ns, hs)
+    f = [torch.ones_like(g)]
+    for t in range(sub - 1, 0, -1):
+        f.append(f[-1] * ww[..., t, :])
+    re = rr * torch.stack(e, -2)
+    kf = (kk * torch.stack(f[::-1], -2)).transpose(-1, -2)
+    a = wkv6_diag_block(rr, kk, ww, u.float()[None, :, None, :])
+    ay = mm(a, vv)                                    # (B, H, ns, sub, hs)
+    s = s0.float().clone()                            # (B, H, hs, hs)
+    ys = []
+    for p in range(ns):
+        ys.append(mm(re[:, :, p], s) + ay[:, :, p])
+        s = g[:, :, p, :, None] * s + mm(kf[:, :, p], vv[:, :, p])
+    y = torch.cat(ys, 2)[:, :, :n].transpose(1, 2)
+    return y.to(r.dtype), s
+
+
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
     """The JAX package's layout and ``wkv6_ref``: r, k, v, w (BH, T, hs);

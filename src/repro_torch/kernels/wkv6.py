@@ -1,28 +1,42 @@
-"""Hand-written CUDA WKV6 recurrence: build at first use, bind, check, launch.
+"""Hand-written CUDA WKV6 recurrence: route, build at first use, bind,
+check, launch.
 
 ``wkv6`` replaces the JAX package's Pallas kernel ``wkv6``
 (``src/repro/kernels/wkv6.py``) with its signature; ``wkv6_heads`` is the
 form the RWKV-6 model calls, in the model's (B, T, H, hs) layout with one
-u per head.  The CUDA source is ``csrc/wkv6.cu``; its head states the work
-split, the bound on the H100 (operations: 2.73 GFLOP, 40.7 us at the f32
-CUDA-core peak for one rwkv6-1.6b prefill layer of 4 x 1024 tokens) and
-what the simple design leaves on the table.
+u per head.  Two CUDA kernels compute it, picked by ``route(dtype, t,
+hs)`` before any launch:
+
+- ``"chunked"``: bf16 at head size 64 and T >= CHUNKED_MIN_T (the
+  rwkv6-1.6b prefill), ``csrc/wkv6_chunked.cu``: the chunked form, matrix
+  products over sub-chunks of 16 steps on the tensor cores;
+- ``"recurrent"``: everything else (f32, decode steps, short prompts,
+  other head sizes), ``csrc/wkv6.cu``: the step-by-step recurrence on the
+  CUDA cores.
+
+Each source's head states its work split, its bound on the H100 and what
+its design leaves on the table.
 
 The Pallas kernel's ``chunk`` (time steps per grid step, sized for VMEM)
-and ``interpret`` have no counterpart: the CUDA kernel stages its own
+and ``interpret`` have no counterpart: each CUDA kernel stages its own
 chunk of steps in shared memory, and on the CPU the plain version runs.
 
-Device rule.  Given CPU tensors a wrapper runs the plain torch version
-(``ref.wkv6_ref``, ``ref.wkv6_heads_ref``); given CUDA tensors it launches
-the kernel or raises.  There is no fallback from a failed build or launch.
+Device rule.  Given CPU tensors a wrapper runs the recurrent plain
+version (``ref.wkv6_ref``, ``ref.wkv6_heads_ref``) whatever the dtype and
+T; given CUDA tensors it launches the routed kernel or raises.  There is
+no fallback from a failed build or launch, nor between the kernels.  The
+chunked form's plain version, ``ref.wkv6_chunked_heads_ref``, is what the
+chunked kernel is held to; the wrappers never call it.
 
-Build.  ``kernels/cuda_lib.py`` compiles the source with nvcc for sm_90a
-and ``-fmad=false`` (every product and sum then rounds as the plain
-version's torch ops, which repeat the kernel's order: the two agree bit
-for bit) into ``build/kernels/libwkv6-<hash>.so`` the first time the
-kernel is launched.
+Build.  ``kernels/cuda_lib.py`` compiles each source with nvcc for sm_90a
+into its own ``build/kernels/lib<name>-<hash>.so`` the first time its
+kernel is launched: the recurrent one with ``-fmad=false`` (every product
+and sum then rounds as the plain version's torch ops, which repeat the
+kernel's order: the two agree bit for bit), the chunked one without (its
+matrix products sum in the tensor cores' order).
 
-The wrappers add one to ``launch_counts["wkv6"]`` where they launch the
+The wrappers add one to ``launch_counts["wkv6"]`` and to the route's own
+count (``wkv6_recurrent`` or ``wkv6_chunked``) where they launch a
 kernel, and nowhere else.
 """
 
@@ -36,16 +50,31 @@ import torch
 from . import ref
 from .cuda_lib import BASE_FLAGS, CudaLibrary, expect, on_cpu
 
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "wkv6.cu"
 NVCC_FLAGS = BASE_FLAGS + ("-fmad=false",)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_SIZE = 128
+CHUNKED_HEAD_SIZE = 64   # rwkv6's head size, the chunked kernel's only one
+CHUNKED_MIN_T = 128      # below it (decode steps; the recurrent kernel's
+                         # own card checks, T <= 100) the recurrence runs
 
-launch_counts = {"wkv6": 0}
+launch_counts = {"wkv6": 0, "wkv6_recurrent": 0, "wkv6_chunked": 0}
 
 
 def reset_launch_counts() -> None:
-    launch_counts["wkv6"] = 0
+    for key in launch_counts:
+        launch_counts[key] = 0
+
+
+def route(dtype: torch.dtype, t: int, hs: int) -> str:
+    """The kernel that takes r, k, v, w of this dtype, T steps and head
+    size: ``"chunked"`` for bf16 at hs 64 and T >= 128, else
+    ``"recurrent"``."""
+    if dtype == torch.bfloat16 and hs == CHUNKED_HEAD_SIZE and \
+            t >= CHUNKED_MIN_T:
+        return "chunked"
+    return "recurrent"
 
 
 def _bind(lib) -> None:
@@ -56,7 +85,18 @@ def _bind(lib) -> None:
     lib.wkv6_launch.restype = i
 
 
+def _bind_chunked(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.wkv6_chunked_launch.argtypes = [
+        p, p, p, p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i,
+        i, p]
+    lib.wkv6_chunked_launch.restype = i
+
+
 LIBRARY = CudaLibrary("wkv6", SOURCE, NVCC_FLAGS, _bind, "wkv6_error_string")
+LIBRARY_CHUNKED = CudaLibrary("wkv6_chunked", CSRC / "wkv6_chunked.cu",
+                              BASE_FLAGS, _bind_chunked,
+                              "wkv6_chunked_error_string")
 
 
 def _check_shapes(r, k, v, w, u, s0):
@@ -77,8 +117,10 @@ def _check_shapes(r, k, v, w, u, s0):
     return b, t, h, hs
 
 
-def _launch(r, k, v, w, u, s0, s_out) -> torch.Tensor:
-    """Launch on CUDA tensors in the model's layout; s_out may be s0."""
+def _launch(r, k, v, w, u, s0, s_out, path=None) -> torch.Tensor:
+    """Launch on CUDA tensors in the model's layout; s_out may be s0.
+    ``path`` is ``route(...)``'s pick unless given: the card checks hold
+    the recurrent kernel at inputs the route sends to the chunked one."""
     b, t, h, hs = r.shape
     if r.dtype not in DTYPE_CODES or any(x.dtype != r.dtype
                                          for x in (k, v, w)):
@@ -88,9 +130,19 @@ def _launch(r, k, v, w, u, s0, s_out) -> torch.Tensor:
             f"{w.dtype}")
     if hs > MAX_HEAD_SIZE:
         raise ValueError(f"head size {hs} > {MAX_HEAD_SIZE}")
+    path = path or route(r.dtype, t, hs)
     for name, x in (("r", r), ("k", k), ("v", v), ("w", w)):
         if x.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")
+        if path == "chunked" and (x.data_ptr() % 16 or any(
+                x.stride(i) % 8 for i in range(3))):
+            raise ValueError(f"the chunked kernel reads 16-byte rows: {name}"
+                             f" needs a 16-byte aligned start and strides "
+                             f"in multiples of 8, got {x.stride()}")
+    if path == "chunked" and (r.dtype != torch.bfloat16
+                              or hs != CHUNKED_HEAD_SIZE):
+        raise ValueError(f"the chunked kernel takes bf16 at head size "
+                         f"{CHUNKED_HEAD_SIZE}; got {r.dtype}, {hs}")
     expect(s0, "s0", torch.float32, (b, h, hs, hs))
     expect(s_out, "s_out", torch.float32, (b, h, hs, hs))
     if not u.is_floating_point():
@@ -99,15 +151,20 @@ def _launch(r, k, v, w, u, s0, s_out) -> torch.Tensor:
     y = torch.empty((b, t, h, hs), dtype=r.dtype, device=r.device)
     strides = (ctypes.c_longlong * 15)(
         *(x.stride(i) for x in (r, k, v, w, y) for i in range(3)))
-    lib = LIBRARY.load()
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u32.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr())
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.wkv6_launch(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u32.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-            strides, b, t, h, hs, DTYPE_CODES[r.dtype], stream)
-    LIBRARY.check(rc, "wkv6")
+        if path == "chunked":
+            rc = LIBRARY_CHUNKED.load().wkv6_chunked_launch(
+                *ptrs, strides, b, t, h, hs, stream)
+        else:
+            rc = LIBRARY.load().wkv6_launch(
+                *ptrs, strides, b, t, h, hs, DTYPE_CODES[r.dtype], stream)
+    (LIBRARY_CHUNKED if path == "chunked" else LIBRARY).check(
+        rc, "wkv6_" + path)
     launch_counts["wkv6"] += 1
+    launch_counts["wkv6_" + path] += 1
     return y
 
 
@@ -122,7 +179,10 @@ def wkv6_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is passed with no copy); state (B, H, hs, hs) f32, contiguous, keyed
     [k dim, v dim]:
     read as the initial state and overwritten with the final one, in
-    place.  Returns y (B, T, H, hs) in r's dtype.
+    place.  Returns y (B, T, H, hs) in r's dtype.  On the card, inputs
+    that ``route`` sends to the chunked kernel (bf16, hs 64, T >= 128)
+    must also start 16-byte aligned with b, t and h strides in multiples
+    of 8, as the model's contiguous projections are; it raises otherwise.
     """
     _check_shapes(r, k, v, w, u, state)
     if on_cpu(r, k, v, w, u, state):
