@@ -4,7 +4,7 @@ path, LM serving (granite-3-2b at full width) and RWKV-6 serving
 (rwkv6-1.6b at full width and depth), every hand-written kernel against
 its plain version.
 
-    python3 chip_smoke.py            # everything (about 7 minutes)
+    python3 chip_smoke.py            # everything (about 4 minutes)
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
@@ -33,8 +33,13 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      versions on a 4096-row-block slice of each full-scale plan with the
      full x (the compacted route over the plan index's ``rows`` view);
      the compacted kernels must launch on the main path and the ELL ones
-     not at all; the sync fused sssp's device idle share (profiled after
-     two warm-up queries); then sssp and pagerank on the power-law
+     not at all; every query reads the host once a sweep and launches
+     its route's kernel once a sweep (sync) or 64 times a sweep (async:
+     sweep 0 eager, the later sweeps one replayed CUDA graph, whose
+     capture seconds each query prints), or the script fails; the device
+     idle share of sssp sync fused and of sssp async fused stopped after
+     ``ASYNC_PROFILE_SWEEPS`` sweeps (profiled after two warm-up
+     queries); then sssp and pagerank on the power-law
      stand-in ``fb`` at scale 0.005, b=32, all four kernels against their
      plain versions on its plans (hub rows of up to 2,148 entries), and
      both routes' times there;
@@ -43,7 +48,15 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      the bound from the filled entries (bytes / 3.35 TB/s) and from the
      ELL image, the fused kernels over a dense and a sparse frontier,
      and, for plus_times, ``torch.sparse_csr_tensor`` @ x (call and
-     device time) as a yardstick; then the graph plans are freed;
+     device time) as a yardstick; the paper's ISA compiler on the
+     full-scale min_plus plan (seconds, instructions) and the paper's
+     analytic NALE/CPU/GPU models (``core/power.py``: modelled platforms,
+     not the H100) for sssp async fused with sssp sync fused's stats; the
+     runners minitri (on the card), tricount and dfs(0) (on the host) on
+     the full-scale CA graph and on ``fb``, held to the oracles (the
+     triangle counts through the dense oracles' formulas as sparse
+     products, themselves held to the dense oracles at n ≈ 900); then
+     the graph plans are freed;
   6. flash attention against its plain version (mha_ref; mha_chunked for
      the long case), each case on the kernel ``flash_attention.route``
      gives it (bf16 at D 64 and 128: tensor cores; f32 and bf16 at other
@@ -128,6 +141,7 @@ RULES = ("relax", "pagerank", "pagerank_delta", "kcore", "identity")
 FRONTIERS = ("empty", "sparse", "dense")
 SCALARS = {"damping": 0.85, "tol": 1e-6, "inv_n": 1e-2}
 SLICE_ROWS = 4096
+ASYNC_PROFILE_SWEEPS = 12
 DEVICE = "cuda"
 CA_SCALE, FB_SCALE, SMALL_SCALE = 1.0, 0.005, 0.02
 # PageRank stop tolerances: ranks average 1/n, so tol scales with n (the
@@ -521,6 +535,11 @@ def time_kernels(proc, g, errs, launches):
 
 
 def run_query(name, fn, tk):
+    """One query's wall time, counters, host reads, CUDA-graph capture
+    seconds and launches per route.  Every loop reads the host once a
+    sweep, and launches its route's kernel once a sweep (sync) or once a
+    group of every sweep (async, through the replayed sweep); any other
+    count raises."""
     import torch
     before = dict(tk.launch_counts)
     torch.cuda.synchronize()
@@ -531,11 +550,22 @@ def run_query(name, fn, tk):
     if "degraded" in res.extra:
         raise AssertionError(f"{name} degraded: {res.extra['degraded']}")
     st = res.stats
-    emit(phase="query", query=name, wall_s=wall, sweeps=st.sweeps,
-         converged=st.converged, tile_work=st.tile_work,
+    launches = {k: tk.launch_counts[k] - before[k] for k in before}
+    emit(phase="query", query=name, wall_s=wall, capture_s=st.capture_s,
+         sweeps=st.sweeps, converged=st.converged, tile_work=st.tile_work,
          edge_work=st.edge_work, host_syncs=st.host_syncs,
          host_syncs_per_sweep=st.host_syncs / max(st.sweeps, 1),
-         launches={k: tk.launch_counts[k] - before[k] for k in before})
+         launches=launches)
+    if st.host_syncs != st.sweeps:
+        raise AssertionError(f"{name}: {st.host_syncs} host reads in "
+                             f"{st.sweeps} sweeps; the loops read once a "
+                             f"sweep")
+    route = ("bsr_spmv_fused_compact" if res.policy.kernel.fuse_frontier
+             else "bsr_spmv_compact")
+    want = st.sweeps * (res.prepared.s if st.mode == "async" else 1)
+    if launches != {k: want if k == route else 0 for k in launches}:
+        raise AssertionError(f"{name}: launches {launches}, want {want} "
+                             f"of {route} ({st.sweeps} sweeps)")
     return res
 
 
@@ -751,10 +781,14 @@ def main_path(errs, gen):
             raise AssertionError(f"the ELL route's {k} launched {v} times "
                                  f"on the main path; the engines take the "
                                  f"compacted route")
-    # the sync engine only: the async one issues ~20 torch ops per group
-    # and 64 groups per sweep, more events than the profiler digests fast
     device_share("sssp/sync/fused", lambda: proc.sssp(
         0, policy=sync.but(kernel=fused, max_sweeps=100_000)))
+    # the async engine replays one graph a sweep, but the graph holds ~30
+    # small kernels a group, 64 groups a sweep: too many device events for
+    # the whole query, so the profiled query stops after a few sweeps
+    device_share(f"sssp/async/fused/max_sweeps={ASYNC_PROFILE_SWEEPS}",
+                 lambda: proc.sssp(0, policy=asyn.but(
+                     kernel=fused, max_sweeps=ASYNC_PROFILE_SWEEPS)))
 
     # values: fused == unfused for the exact rules; oracles for all
     base = res["sssp/sync/ref"]
@@ -820,7 +854,140 @@ def main_path(errs, gen):
         emit(phase="fb_time", kernel=name, ms=cuda_ms(call),
              device_ms=kernel_device_ms(call, KERNEL_KEYS[name]),
              bytes=nb, bound_ms=nb / HBM_BYTES_PER_S * 1e3)
-    return proc, g, launches
+    return proc, g, launches, res
+
+
+def sparse_triangles(g):
+    """``triangles_oracle`` and ``tricount_oracle`` (core/oracles.py) as
+    sparse products: the same formulas, trace(A³)/6 over the undirected
+    adjacency and ((A·A) ∘ A) row sums / 2 with the diagonal dropped,
+    which the dense oracles cannot hold at n = 1,962,801 (n² int64 is
+    31 TB).  ``runners_phase`` holds this form to the dense oracles on a
+    small graph first."""
+    import numpy as np
+    import scipy.sparse as sp
+    und = g.to_undirected()
+    src = np.repeat(np.arange(und.n), np.diff(und.indptr))
+    a = sp.csr_matrix((np.ones(und.nnz, np.int64), (src, und.indices)),
+                      shape=(und.n, und.n))
+    a.data[:] = 1                        # a[src, dst] = 1, as assigned there
+    total = int((a @ a).multiply(a.T).sum()) // 6
+    a = a.maximum(a.T)
+    a = (sp.triu(a, 1) + sp.tril(a, -1)).tocsr()
+    a.eliminate_zeros()
+    counts = np.asarray((a @ a).multiply(a).sum(axis=1)).ravel() // 2
+    return total, counts
+
+
+def check_runners(g, tri, cnt, dfs, src, what):
+    """MiniTri, tricount and DFS results against the oracles (the
+    triangle ones in their sparse form, ``sparse_triangles``)."""
+    import numpy as np
+    from repro_torch.core import oracles as O
+    total, counts = sparse_triangles(g)
+    if tri.extra["triangles"] != total or int(tri.values[0]) != total:
+        raise AssertionError(f"{what}: minitri {tri.extra['triangles']}, "
+                             f"oracle {total}")
+    np.testing.assert_array_equal(cnt.values, counts)
+    if cnt.extra["triangles"] != total:
+        raise AssertionError(f"{what}: tricount total differs")
+    order, parent = O.dfs_oracle(g, src)
+    nv = dfs.extra["visited_count"]
+    if nv != len(order):
+        raise AssertionError(f"{what}: dfs visited {nv}, oracle "
+                             f"{len(order)}")
+    np.testing.assert_array_equal(dfs.values[:nv], order)
+    np.testing.assert_array_equal(dfs.extra["parent"], parent)
+    return total
+
+
+def runners_phase(proc, g):
+    """MiniTri (its intersections on the card), tricount and DFS (on the
+    host, as in the JAX package) through the session on the full-scale CA
+    graph and on the ``fb`` stand-in at ``FB_SCALE`` (the CA stand-in, a
+    lattice with random shortcuts, has almost no triangles; ``fb`` has
+    1.9 M): seconds, and agreement with the oracles.  First, on both
+    stand-ins at n ≈ 900, the sparse form of the triangle oracles against
+    the dense oracles themselves, and the three runners against both."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core import graph as G
+    from repro_torch.core import oracles as O
+    for name, scale, b in (("ca", 0.0005, 16), ("fb", 0.0003, 32)):
+        small = G.make_paper_graph(name, scale=scale, seed=0)
+        total, counts = sparse_triangles(small)
+        if total != O.triangles_oracle(small):
+            raise AssertionError(f"{name}: sparse triangles != "
+                                 f"triangles_oracle")
+        np.testing.assert_array_equal(counts, O.tricount_oracle(small))
+        ps = api.GraphProcessor(small, b=b, num_clusters=8, device=DEVICE)
+        check_runners(small, ps.minitri(), ps.tricount(), ps.dfs(0), 0,
+                      f"{name} n={small.n}")
+    gf = G.make_paper_graph("fb", scale=FB_SCALE, seed=0)
+    for name, pr, graph in (
+            ("ca", proc, g),
+            ("fb", api.GraphProcessor(gf, b=32, num_clusters=64,
+                                      device=DEVICE), gf)):
+        out = {}
+        for algo, fn in (("minitri", pr.minitri), ("tricount", pr.tricount),
+                         ("dfs", lambda: pr.dfs(0))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[algo] = fn()
+            torch.cuda.synchronize()
+            out[algo + "_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        total = check_runners(graph, out["minitri"], out["tricount"],
+                              out["dfs"], 0, name)
+        emit(phase="runners", graph=name, n=graph.n, nnz=graph.nnz,
+             triangles=total,
+             oriented_edges=out["minitri"].extra["oriented_edges"],
+             k_max=out["minitri"].extra["k_max"],
+             dfs_visited=out["dfs"].extra["visited_count"],
+             minitri_s=out["minitri_s"], tricount_s=out["tricount_s"],
+             dfs_s=out["dfs_s"], oracle_s=time.perf_counter() - t0, ok=True)
+
+
+def platform_phase(proc, res):
+    """The paper's ISA compiler on the full-scale min_plus plan (seconds,
+    instructions, the instruction totals), and the paper's analytic
+    NALE/CPU/GPU models (core/power.py) for sssp async fused paired with
+    sssp sync fused: modelled platforms, not the H100."""
+    import math
+    from repro_torch.core import compile as GC
+    p = proc.prepare("min_plus")
+    t0 = time.perf_counter()
+    prog = GC.compile_graph_program(p, "relax")
+    seconds = time.perf_counter() - t0
+    if len(prog.programs) != p.s or \
+            prog.instr_total["GMAC"] != int(p.tiles_total):
+        raise AssertionError("compile: one program a cluster, one GMAC a "
+                             "tile")
+    emit(phase="compile", plan="min_plus", seconds=seconds,
+         programs=len(prog.programs),
+         instructions=prog.total_instructions(),
+         instr_total=prog.instr_total,
+         static_cycles_max=int(prog.static_cycles.max()))
+    ra, rs = res["sssp/async/fused"], res["sssp/sync/fused"]
+    rep = ra.platform_models(sync_stats=rs.stats)
+    if set(rep) != {"nale", "cpu", "gpu"} or not all(
+            math.isfinite(v) and v > 0 for r in rep.values()
+            for v in (r.cycles, r.time_s, r.energy_j, r.power_w)):
+        raise AssertionError(f"platform models: {rep}")
+    nale, cpu, gpu = rep["nale"], rep["cpu"], rep["gpu"]
+    emit(phase="platform_models",
+         model="the paper's analytic NALE/CPU/GPU model (core/power.py), "
+               "not the H100's",
+         query="sssp/async/fused with sync_stats of sssp/sync/fused",
+         reports={k: dict(cycles=r.cycles, time_s=r.time_s,
+                          energy_j=r.energy_j, power_w=r.power_w,
+                          perf_per_watt=r.perf_per_watt)
+                  for k, r in rep.items()},
+         nale_speedup_over_cpu=cpu.time_s / nale.time_s,
+         nale_speedup_over_gpu=gpu.time_s / nale.time_s,
+         nale_perf_per_watt_over_cpu=nale.perf_per_watt / cpu.perf_per_watt,
+         nale_perf_per_watt_over_gpu=nale.perf_per_watt / gpu.perf_per_watt)
 
 
 # -- LM serving: flash attention and granite-3-2b ---------------------------
@@ -1946,9 +2113,11 @@ def graph_phases():
                               gen)
     emit(phase="kernel_vs_plain", ok=True, max_abs_err=errs.max)
 
-    proc, g, launches = main_path(errs, gen)
+    proc, g, launches, res = main_path(errs, gen)
     kernels = time_kernels(proc, g, errs, launches)
-    del proc, g, p
+    platform_phase(proc, res)
+    runners_phase(proc, g)
+    del proc, g, p, res
     gc.collect()
     torch.cuda.empty_cache()  # 25.4 GB of plans, before the LM phases
     emit(phase="graph_freed", device_gb=torch.cuda.memory_allocated() / 1e9)

@@ -4,7 +4,9 @@
 #   engine         — sync (BSP) vs async (cluster-dataflow, Gauss-Seidel)
 #   algorithms     — the AlgorithmSpec registry
 #   api            — GraphProcessor session, ExecutionPolicy, QuerySpec
+#   isa/compile    — the specialized ISA + step-5 codegen
+#   power          — cycle & energy models for NALE / CPU / GPU classes
 #   oracles        — numpy reference implementations
 
-from . import algorithms, api, cluster, engine, graph, oracles, \
-    semiring  # noqa: F401
+from . import algorithms, api, cluster, compile, engine, graph, isa, \
+    oracles, power, semiring  # noqa: F401

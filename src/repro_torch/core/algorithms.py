@@ -28,9 +28,9 @@ should construct the processor directly so the compile-time pipeline
     proc.pagerank(); proc.sssp(0); proc.sssp(sources=[1, 2, 3])
 
 Every entry point runs on ``cuda`` unless ``device=`` names another
-device.  The registry holds all ten algorithms; the three host runners
-(minitri, tricount, dfs) are registered so that a request for one fails
-with a ValueError naming the ROADMAP item that ports it.
+device.  The registry holds all ten algorithms; the three runners
+(minitri, tricount, dfs) bypass the engines through the session's runner
+hooks.
 """
 
 from __future__ import annotations
@@ -331,3 +331,16 @@ def reachability(g: Graph, src: int, mode: str = "sync", b: int = 32,
     pol = _policy(mode, impl, max_sweeps=max_sweeps)
     return _proc(g, b, num_clusters, clustered, device).reachability(src,
                                                              policy=pol)
+
+
+def minitri(g: Graph, chunk: int = 65536, device=None):
+    return _proc(g, device=device).minitri(chunk=chunk)
+
+
+def tricount(g: Graph, chunk: int = 65536, device=None):
+    """Per-vertex triangle counts (values[v] = triangles at corner v)."""
+    return _proc(g, device=device).tricount(chunk=chunk)
+
+
+def dfs(g: Graph, src: int, device=None):
+    return _proc(g, device=device).dfs(src)

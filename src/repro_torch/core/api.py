@@ -15,12 +15,13 @@ pipeline once.
 
 The session runs on ``cuda`` unless ``device=`` names another device (the
 tests pass ``device="cpu"``); without a card and without a device it
-raises.  Parts of the JAX package's session that are not ported yet —
-``mode="distributed"``, ``KernelSpec(autotune=True)``, the host runners
-minitri/tricount/dfs and the platform models — are refused with a
-ValueError from ``validate_spec``/``resolve_policy`` that names the
-ROADMAP item, so the degradation ladder never re-runs them as something
-else.
+raises.  MiniTri intersects its sorted neighbour table on the session's
+device; tricount and DFS run on the host in both packages (numpy, and a
+Python stack machine: DFS is serial by nature).  The two parts of the
+JAX package's session that are not ported yet — ``mode="distributed"``
+and ``KernelSpec(autotune=True)`` — are refused with a ValueError from
+``validate_spec``/``resolve_policy`` that names the ROADMAP item, so the
+degradation ladder never re-runs them as something else.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from . import engine as eng
 from .algorithms import (AlgorithmSpec, get_algorithm,  # noqa: F401
                          register_algorithm, registered_algorithms)
 from .engine import Prepared, RunStats, resolve_device
-from .graph import Graph
+from .graph import Graph, to_ell_fast
 from ..kernels.spec import KernelSpec, as_kernel_spec
 
 MODES = ("sync", "async", "distributed")
@@ -47,11 +48,6 @@ _UNPORTED_MODE = ("mode='distributed' is not ported yet (ROADMAP queue 1: "
                   "multi-device engines); use mode='sync' or 'async'")
 _UNPORTED_AUTOTUNE = ("KernelSpec(autotune=True) is not ported yet (ROADMAP "
                       "queue 1: autotuner and roofline)")
-_UNPORTED_RUNNER = ("{algo!r} runs on a host runner that is not ported yet "
-                    "(ROADMAP queue 1: runner algorithms minitri, tricount, "
-                    "dfs)")
-_UNPORTED_MODELS = ("platform models are not ported yet (ROADMAP queue 1: "
-                    "compile and platform models)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,7 +199,26 @@ class Result:
 
     def platform_models(self, sync_stats: Optional[RunStats] = None
                         ) -> dict:
-        raise ValueError(_UNPORTED_MODELS)
+        """Analytical NALE/CPU/GPU models (core/power.py) for this run:
+        the paper's platforms, not the GPU the port runs on.
+
+        The GPU model needs bulk-synchronous sweep counts; it is included
+        when this result is already sync or when ``sync_stats`` is given.
+        """
+        from . import power as PW
+        if self.prepared is None:
+            raise ValueError(
+                f"{self.extra.get('algo', 'this')} result has no BSR "
+                "image; platform models need a prepared plan")
+        rep = {"nale": PW.model_nale(self.prepared, self.stats),
+               "cpu": PW.model_cpu(self.prepared, self.stats)}
+        ss = sync_stats or (self.stats if self.stats.mode == "sync"
+                            else None)
+        if ss is not None and self.graph is not None:
+            k_pad = max(float(np.diff(self.graph.indptr).max()), 1.0)
+            rep["gpu"] = PW.model_gpu(self.prepared, ss, k_max_pad=k_pad,
+                                      avg_degree=self.graph.avg_degree)
+        return rep
 
 
 def _check_ported(pol: ExecutionPolicy) -> None:
@@ -217,8 +232,6 @@ def validate_spec(spec: QuerySpec) -> None:
     """Raise on specs that can never execute (including what this
     package has not ported yet)."""
     a = get_algorithm(spec.algo)
-    if a.runner is not None:
-        raise ValueError(_UNPORTED_RUNNER.format(algo=spec.algo))
     if a.source_required and not spec.sources:
         raise ValueError(
             f"{spec.algo} requires at least one source vertex")
@@ -355,7 +368,10 @@ class GraphProcessor:
         ValueError/TypeError/KeyError/IndexError always propagate.
         """
         validate_spec(spec)
+        a = get_algorithm(spec.algo)
         pol = self.resolve_policy(spec)
+        if a.runner is not None:
+            return getattr(self, a.runner)(spec, pol)
         steps: list = []
         while True:
             try:
@@ -498,3 +514,167 @@ class GraphProcessor:
     def reachability(self, src: int,
                      policy: Optional[ExecutionPolicy] = None) -> Result:
         return self.run(self._spec("reachability", src, policy))
+
+    def minitri(self, policy: Optional[ExecutionPolicy] = None,
+                chunk: int = 65536) -> Result:
+        del policy  # one-shot data-parallel: engine policy does not apply
+        return self._minitri(chunk)
+
+    def tricount(self, policy: Optional[ExecutionPolicy] = None,
+                 chunk: int = 65536) -> Result:
+        """Per-vertex triangle counts (each triangle credits its three
+        corners once)."""
+        del policy  # one-shot data-parallel: engine policy does not apply
+        return self._tricount(chunk)
+
+    def dfs(self, src: int,
+            policy: Optional[ExecutionPolicy] = None) -> Result:
+        return self.run(QuerySpec(algo="dfs", sources=(int(src),),
+                                  policy=policy))
+
+    # -- runner hooks: registry dispatch for non-relaxation workloads ----
+
+    def _minitri_runner(self, spec: QuerySpec,
+                        pol: ExecutionPolicy) -> Result:
+        return self._minitri()
+
+    def _tricount_runner(self, spec: QuerySpec,
+                         pol: ExecutionPolicy) -> Result:
+        return self._tricount()
+
+    def _dfs_runner(self, spec: QuerySpec,
+                    pol: ExecutionPolicy) -> Result:
+        return self._dfs(spec.sources[0])
+
+    # -- triangle workloads: one-shot data-parallel intersections --------
+
+    def _oriented_edges(self):
+        """Shared compile-time step for the triangle workloads: orient
+        the undirected graph low→high by (degree, id) — a DAG with small
+        max out-degree — and return (und, k_max, rows, eu, ev) where
+        ``rows`` is the (n+1, k_max) sorted ELL neighbour table padded
+        with the sentinel row ``n`` and (eu, ev) are the oriented edges.
+        Each triangle appears exactly once: as its lowest edge (u, v)
+        with the third corner in N+(u) ∩ N+(v)."""
+        und = self._variant("undirected")
+        deg = und.out_degrees()
+        src = np.repeat(np.arange(und.n, dtype=np.int64),
+                        np.diff(und.indptr))
+        dst = und.indices.astype(np.int64)
+        key_s = deg[src] * (und.n + 1) + src
+        key_d = deg[dst] * (und.n + 1) + dst
+        keep = key_s < key_d
+        s2, d2 = src[keep], dst[keep]
+        g_plus = Graph.from_edges(und.n, s2.astype(np.int32),
+                                  d2.astype(np.int32),
+                                  np.ones(len(s2), dtype=np.float32))
+        ell = to_ell_fast(g_plus)
+        rows = np.vstack([ell.cols, np.full((1, ell.k_max), und.n,
+                                            dtype=np.int32)])
+        eu = np.repeat(np.arange(und.n, dtype=np.int32),
+                       np.diff(g_plus.indptr))
+        ev = g_plus.indices.astype(np.int32)
+        return und, ell.k_max, rows, eu, ev
+
+    @staticmethod
+    def _oneshot_stats(e_plus: int, k_max: int) -> RunStats:
+        # one-shot data-parallel workload: intersections distribute evenly
+        # over the NALE array (no dependency chain), so the critical path
+        # is total work / array width, not the serial stream
+        nales = 256.0
+        return RunStats(
+            sweeps=1, converged=True,
+            tile_work=float(e_plus * k_max),
+            edge_work=float(e_plus * max(k_max, 1)),
+            crit_tiles=float(e_plus * k_max) / nales,
+            active_group_sweeps=nales, halo_tiles=0.0, total_groups=1,
+            mode="oneshot")
+
+    def _minitri(self, chunk: int = 65536) -> Result:
+        """Total triangles: for each oriented edge (u, v), the sorted
+        rows of u and v intersected by ``torch.searchsorted`` on the
+        session's device, ``chunk`` edges at a time, into an int64 total
+        read to the host once."""
+        und, k_max, rows, eu, ev = self._oriented_edges()
+        rows_t = torch.from_numpy(rows).to(self.device)
+        eu_t = torch.from_numpy(eu).to(self.device).long()
+        ev_t = torch.from_numpy(ev).to(self.device).long()
+        total = torch.zeros((), dtype=torch.int64, device=self.device)
+        for i in range(0, len(eu), chunk):
+            a, bb = rows_t[eu_t[i:i + chunk]], rows_t[ev_t[i:i + chunk]]
+            pos = torch.searchsorted(bb, a).clamp_(0, k_max - 1)
+            hit = (bb.gather(1, pos) == a) & (a != und.n)
+            total += hit.sum()
+        total = int(total)
+        e_plus = len(eu)
+        return Result(np.array([total]), self._oneshot_stats(e_plus, k_max),
+                      None, {"algo": "minitri", "triangles": total,
+                             "oriented_edges": e_plus, "k_max": k_max},
+                      policy=None, graph=self.g)
+
+    def _tricount(self, chunk: int = 65536) -> Result:
+        """Per-vertex triangle counts over the same oriented-edge table
+        as MiniTri: for each oriented edge (u, v), every common
+        out-neighbour w closes one triangle — credit u, v, and w.  Runs
+        on the host in numpy, as in the JAX package."""
+        und, k_max, rows, eu, ev = self._oriented_edges()
+        counts = np.zeros(und.n, dtype=np.int64)
+        # numpy all-pairs matching per edge chunk; K*K comparisons per
+        # edge, chunk sized to bound the (chunk, K, K) mask at ~4M cells
+        kk = max(k_max * k_max, 1)
+        step = max(1, min(chunk, (1 << 22) // kk))
+        for i in range(0, len(eu), step):
+            u, v = eu[i:i + step], ev[i:i + step]
+            a, b = rows[u], rows[v]               # (E, K) neighbour ids
+            m = (a[:, :, None] == b[:, None, :]) & \
+                (a[:, :, None] != und.n)
+            per_edge = m.sum(axis=(1, 2))
+            np.add.at(counts, u, per_edge)
+            np.add.at(counts, v, per_edge)
+            e_idx, i_idx, _ = np.nonzero(m)
+            np.add.at(counts, a[e_idx, i_idx], 1)
+        total = int(counts.sum() // 3)
+        e_plus = len(eu)
+        return Result(counts.astype(np.float32),
+                      self._oneshot_stats(e_plus, k_max), None,
+                      {"algo": "tricount", "triangles": total,
+                       "oriented_edges": e_plus, "k_max": k_max},
+                      policy=None, graph=self.g)
+
+    # -- DFS: sequential stack machine (worst-case-serial) ---------------
+
+    def _dfs(self, src: int) -> Result:
+        """Depth-first order from ``src``, lowest neighbour first: a
+        stack machine on the host over the CSR graph.  The JAX package
+        runs the same machine as one jitted ``while_loop``; eager torch
+        on the card would launch kernels once per vertex, so the port
+        walks the host CSR, and the result is a host array in both."""
+        g = self.g
+        n = g.n
+        k = max(int(np.diff(g.indptr).max()) if n else 1, 1)
+        indptr, indices = g.indptr.tolist(), g.indices.tolist()
+        visited = bytearray(n)
+        order = np.full(n, -1, dtype=np.int32)
+        parent = np.full(n, -1, dtype=np.int32)
+        stack, cnt = [(int(src), -1)], 0
+        while stack:
+            u, pu = stack.pop()
+            if visited[u]:
+                continue
+            visited[u] = 1
+            order[cnt] = u
+            parent[u] = pu
+            cnt += 1
+            # push neighbours in reverse so the lowest pops first
+            for v in reversed(indices[indptr[u]:indptr[u + 1]]):
+                if not visited[v]:
+                    stack.append((v, u))
+        stats = RunStats(
+            sweeps=cnt, converged=True,
+            tile_work=float(cnt * k), edge_work=float(g.nnz),
+            crit_tiles=float(cnt * k), active_group_sweeps=float(cnt),
+            halo_tiles=0.0, total_groups=1, mode="sequential")
+        return Result(order, stats, None,
+                      {"algo": "dfs", "src": src, "parent": parent,
+                       "visited_count": cnt},
+                      policy=None, graph=self.g)

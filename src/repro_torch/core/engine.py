@@ -16,10 +16,13 @@ are the Q=1 case of the batched ones.  A query that has converged (or hit
 ``max_sweeps``) is frozen: its values are no longer updated and its
 counters no longer grow, as under the JAX package's vmapped while loop.
 
-The loops run in Python and read the device once per sweep to decide
-whether every query is done; the async engine also reads, once per group,
-whether any query's group is ready (so an idle group costs no launch).
-``RunStats.host_syncs`` counts these reads.
+The loops run in Python and read the device once per sweep, to decide
+whether every query is done; ``RunStats.host_syncs`` counts these reads,
+so it equals ``sweeps`` for every runner.  The async engine decides on the
+device whether a group is ready: it launches every group and masks what
+an idle group would write, and on the card it captures one sweep as a CUDA
+graph and replays it for every later sweep (the counterpart of the JAX
+package's one jitted loop).
 
 Every loop hands the SpMV its plan's compacted index of filled tile
 entries (``Prepared.compact_index``, built at the first query), so the
@@ -39,6 +42,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -381,6 +385,9 @@ class RunStats:
     # device→host reads the Python loops made to decide control flow (not
     # a field of the JAX package's RunStats, whose loops stay on device)
     host_syncs: int = dataclasses.field(default=0, compare=False)
+    # seconds the async engine spent capturing its sweep as a CUDA graph
+    # (0 on the CPU and for runs of one sweep)
+    capture_s: float = dataclasses.field(default=0.0, compare=False)
 
 
 def bsp_stats(p: Prepared, sweeps: int, converged: bool, mode: str,
@@ -402,7 +409,8 @@ def bsp_stats(p: Prepared, sweeps: int, converged: bool, mode: str,
 
 
 def _counter_stats(p: Prepared, sweeps: int, converged: bool, c: dict,
-                   mode: str, host_syncs: int = 0) -> RunStats:
+                   mode: str, host_syncs: int = 0,
+                   capture_s: float = 0.0) -> RunStats:
     """RunStats from measured per-query float32 counters (fused and async
     paths): totals over the query axis, summed as float32 by numpy as in
     the JAX package."""
@@ -414,7 +422,8 @@ def _counter_stats(p: Prepared, sweeps: int, converged: bool, c: dict,
         crit_tiles=float(c["crit"].max(initial=0.0)),
         active_group_sweeps=float(c["active"].sum()),
         halo_tiles=float(c["halo"].sum()),
-        total_groups=p.s, mode=mode, host_syncs=host_syncs)
+        total_groups=p.s, mode=mode, host_syncs=host_syncs,
+        capture_s=capture_s)
 
 
 # ---------------------------------------------------------------------------
@@ -544,13 +553,46 @@ def _sync_loop_fused(st: _Loop, changed0: torch.Tensor, semiring_name: str,
     return x, c
 
 
+class _CapturedSweep:
+    """One async sweep captured as a CUDA graph, replayed for each later
+    sweep.  The kernel wrappers count their launches in Python, which
+    runs once, at the capture, where nothing is launched: the capture's
+    counts are taken back out and added again at every replay, so
+    ``bsr_spmv.launch_counts`` stays exact.  A failed capture or replay
+    raises; nothing carries on eagerly."""
+
+    def __init__(self, sweep):
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with bsr_spmv.capture_launches() as self.launches:
+            with torch.cuda.graph(self.graph):
+                self.flags = sweep()
+        self.seconds = time.perf_counter() - t0
+
+    def __call__(self) -> torch.Tensor:
+        self.graph.replay()
+        bsr_spmv.add_launches(self.launches)
+        return self.flags
+
+
 def _async_loop(st: _Loop, changed0: torch.Tensor, semiring_name: str,
                 apply_kind: str, spec):
     """Gauss-Seidel over the groups in index order (0..s-1).  A group is
     ready for a query when one of its live input tiles reads a block that
     changed last sweep or earlier this sweep; bias rules also run every
     group once (first touch).  With the fused kernel only the ready rows
-    (and, on first touch, the valid rows) are walked and charged."""
+    (and, on first touch, the valid rows) are walked and charged.
+
+    Readiness is decided on the device, as the JAX package's ``lax.cond``
+    decides it: every group is launched, the fused kernel walks none of
+    an idle group's rows, and the unfused path computes an idle group's
+    SpMV and discards it (a few microseconds of device time), so values,
+    sweeps and every counter are those of a loop that skips the group.
+    The sweep reads and writes only buffers allocated before it (x, the
+    change flags, ``ran``, the counters, ``sweep_max`` and ``lq``, the
+    device copy of the host's live mask), so on the card sweep 0 runs
+    eagerly and the later sweeps replay its CUDA graph; on the CPU every
+    sweep runs eagerly."""
     p = st.p
     ring = sr.get(semiring_name)
     spmv = ops.select_kernel("bsr_spmv", spec)
@@ -566,14 +608,14 @@ def _async_loop(st: _Loop, changed0: torch.Tensor, semiring_name: str,
                    for g in range(p.s)]
     c = _new_counters(q, p.device)
     x, ch_prev = st.x0.clone(), changed0.clone()
+    ch_next = torch.zeros_like(ch_prev)
     ran = torch.zeros((q, p.s), dtype=torch.bool, device=p.device)
-    while True:
-        live = st.live()
-        if not live.any():
-            break
-        lq = torch.from_numpy(live).to(p.device)
-        ch_next = torch.zeros_like(ch_prev)
-        sweep_max = torch.zeros(q, dtype=torch.float32, device=p.device)
+    sweep_max = torch.zeros(q, dtype=torch.float32, device=p.device)
+    lq = torch.zeros(q, dtype=torch.bool, device=p.device)
+
+    def sweep() -> torch.Tensor:
+        ch_next.zero_()
+        sweep_max.zero_()
         for g in range(p.s):
             sl = slice(g * gb, (g + 1) * gb)
             ch = ch_prev | ch_next
@@ -582,8 +624,6 @@ def _async_loop(st: _Loop, changed0: torch.Tensor, semiring_name: str,
             if first_touch:
                 active = active | ~ran[:, g]
             active = active & lq
-            if not st.read(active.any()):
-                continue  # idle for every query: no work, no counters
             xg = x[:, sl].contiguous()
             vg = p.valid[sl]
             if fused:
@@ -618,11 +658,25 @@ def _async_loop(st: _Loop, changed0: torch.Tensor, semiring_name: str,
             c["edge_work"] += g_edges
             c["halo"] += g_halo
             c["active"] += active.float()
-            sweep_max = torch.maximum(sweep_max, g_tiles)
+            torch.maximum(sweep_max, g_tiles, out=sweep_max)
         c["crit"] += sweep_max
-        st.finish_sweep(live, ~st.read(ch_next.any(dim=1)))
-        ch_prev = ch_next
-    return x, c
+        ch_prev.copy_(ch_next)
+        return ch_next.any(dim=1)
+
+    replay, eager = None, True
+    while True:
+        live = st.live()
+        if not live.any():
+            break
+        lq.copy_(torch.from_numpy(live))
+        if eager:
+            flags = sweep()
+            eager = p.device.type != "cuda"  # on the card: capture next
+        else:
+            replay = replay or _CapturedSweep(sweep)
+            flags = replay()
+        st.finish_sweep(live, ~st.read(flags))
+    return x, c, (replay.seconds if replay else 0.0)
 
 
 def _run(p: Prepared, x0, changed0, apply_kind, damping, tol, max_sweeps,
@@ -638,8 +692,10 @@ def _run(p: Prepared, x0, changed0, apply_kind, damping, tol, max_sweeps,
     if changed0 is None and (mode == "async" or spec.fuse_frontier):
         changed0 = torch.ones((q, p.r_pad), dtype=torch.bool,
                               device=p.device)
+    capture_s = 0.0
     if mode == "async":
-        x, c = _async_loop(st, changed0, p.semiring, apply_kind, spec)
+        x, c, capture_s = _async_loop(st, changed0, p.semiring, apply_kind,
+                                      spec)
     elif spec.fuse_frontier:
         x, c = _sync_loop_fused(st, changed0, p.semiring, apply_kind, spec)
     else:
@@ -651,7 +707,7 @@ def _run(p: Prepared, x0, changed0, apply_kind, damping, tol, max_sweeps,
         return x, stats
     stats = _counter_stats(p, int(st.sweeps.max(initial=0)),
                            bool(st.done.all()), c, mode,
-                           host_syncs=st.syncs)
+                           host_syncs=st.syncs, capture_s=capture_s)
     return x, stats
 
 

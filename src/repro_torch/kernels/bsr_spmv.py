@@ -29,11 +29,15 @@ raw pointers and the current stream and return the CUDA error code.
 Each wrapper adds one to ``launch_counts[name]`` where it launches its
 kernel, and nowhere else: ``bsr_spmv`` and ``bsr_spmv_fused`` count the
 ELL route, ``bsr_spmv_compact`` and ``bsr_spmv_fused_compact`` the
-compacted one.
+compacted one.  Under a CUDA-graph capture a wrapper records its launch
+instead of making it; ``capture_launches`` and ``add_launches`` move those
+counts from the capture to each replay.  The wrappers read nothing from
+the device, so a capture may hold them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import pathlib
@@ -66,6 +70,27 @@ launch_counts = {"bsr_spmv": 0, "bsr_spmv_fused": 0,
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Around a CUDA-graph capture: yields a dict that, on exit, holds the
+    launches the wrappers counted inside (recorded into the graph, not
+    made), and takes them back out of ``launch_counts``."""
+    before = dict(launch_counts)
+    recorded = {}
+    try:
+        yield recorded
+    finally:
+        for k in launch_counts:
+            recorded[k] = launch_counts[k] - before[k]
+            launch_counts[k] = before[k]
+
+
+def add_launches(recorded: dict) -> None:
+    """Count one replay of a graph whose capture recorded ``recorded``."""
+    for k, v in recorded.items():
+        launch_counts[k] += v
 
 
 def _bind(lib) -> None:

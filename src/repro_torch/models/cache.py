@@ -24,13 +24,14 @@ def check_ported(cfg: ModelConfig, kind: str) -> None:
     that the port does not build yet."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md, queue 1 "
-            f"item 10); the port builds {PORTED_KINDS}")
+            f"block kind {kind!r} is not ported yet (ROADMAP.md, queue 1: "
+            f"LM stack, the rest); the port builds {PORTED_KINDS}")
     if kind == "attn" and (cfg.attn_kind != "gqa"
                            or cfg.pos_embedding == "learned"):
         raise NotImplementedError(
             f"attention {cfg.attn_kind!r} with {cfg.pos_embedding!r} "
-            "positions is not ported yet (ROADMAP.md, queue 1 item 10)")
+            "positions is not ported yet (ROADMAP.md, queue 1: LM stack, "
+            "the rest)")
 
 
 def attn_cache_init(cfg: ModelConfig, batch: int, cache_len: int,

@@ -285,11 +285,7 @@ def test_policy_but_and_hash_equal_reference():
                            policy=tapi.ExecutionPolicy(
                                mode="async", kernel=tapi.KernelSpec(
                                    impl="pallas", autotune=True))),
-    lambda: tapi.QuerySpec(algo="minitri"),
-    lambda: tapi.QuerySpec(algo="tricount"),
-    lambda: tapi.QuerySpec(algo="dfs", sources=(0,)),
-], ids=["distributed", "distributed-param", "autotune", "minitri",
-        "tricount", "dfs"])
+], ids=["distributed", "distributed-param", "autotune"])
 def test_unported_raise_value_error(make):
     _, tp = _procs("road")
     plan = trz.FaultPlan([])
