@@ -4,7 +4,7 @@ path, LM serving (granite-3-2b at full width) and RWKV-6 serving
 (rwkv6-1.6b at full width and depth), every hand-written kernel against
 its plain version.
 
-    python3 chip_smoke.py            # everything (about 4 minutes)
+    python3 chip_smoke.py            # everything (about 8 minutes)
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
@@ -55,8 +55,24 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      runners minitri (on the card), tricount and dfs(0) (on the host) on
      the full-scale CA graph and on ``fb``, held to the oracles (the
      triangle counts through the dense oracles' formulas as sparse
-     products, themselves held to the dense oracles at n ≈ 900); then
-     the graph plans are freed;
+     products, themselves held to the dense oracles at n ≈ 900); the
+     compacted kernels at a full serving wave's width, Q 64 (phase
+     ``time_q64``: call, device time, plain version, bound and, for
+     plus_times, ``torch.sparse.mm``); then the serving layer
+     (``graph_serving``): the main path's plans handed to a
+     ``GraphService`` store, 8 client threads sending 256 sssp, 64 bfs,
+     one pagerank and one cc into a ``GraphServer`` (waves of up to 64,
+     5 ms wait, one worker), then the 256 sssp under a sync fused
+     policy: requests/s, p50/p99 latency, wave widths, one 64-wide async
+     wave's wall, sweeps, capture seconds and idle share, peak device
+     memory; every wave one host read a sweep and its route's launches
+     (sweeps × 64 async), sampled results bit-equal to direct runs, two
+     sssp and one bfs against the oracles, a transient dispatch fault
+     retried to the same values, one wave's capture held open while
+     another thread uploads a plan (``register(warm=True)``) and a third
+     runs a sync query, the disk tier (the min_plus plan written and
+     reloaded, ``prepare_calls == 0``) and an eviction that must free the
+     loaded plan's device bytes; then the graph plans are freed;
   6. flash attention against its plain version (mha_ref; mha_chunked for
      the long case), each case on the kernel ``flash_attention.route``
      gives it (bf16 at D 64 and 128: tensor cores; f32 and bf16 at other
@@ -151,6 +167,7 @@ CA_SCALE, FB_SCALE, SMALL_SCALE = 1.0, 0.005, 0.02
 PR_TOL = {"ca": 1e-11, "fb": 1e-10}
 
 CARD = {}
+PREPARE_S = {}   # the main path's seconds to prepare each plan, by key
 
 
 def emit(**rec):
@@ -372,14 +389,16 @@ def entry_bytes(index, q, act=None, fused=False) -> int:
     n, e = int(walked.sum()), src.numel()
     nbytes = e * 8 + (n + 1) * 4 + q * n_x * 4 + q * n * 4
     if fused:
-        nbytes += n * (4 + 1) + index.r + index.r
+        nbytes += q * n * 4 + n + 2 * q * index.r
     return nbytes
 
 
 def csr_yardstick(p, g, x):
     """The same permuted pull matrix as a CSR tensor (plus_times,
-    out-stochastic weights) and its call on x: the library's SpMV, timed
-    as a yardstick and never called by the port."""
+    out-stochastic weights) and its call on x (Q, r_pad, B), as
+    ``torch.sparse.mm`` of the matrix by the (n_pad, Q) block x^T: the
+    library's SpMV, timed as a yardstick and never called by the port.
+    The call returns (n_pad, Q)."""
     import numpy as np
     import torch
     from repro_torch.core.graph import Graph
@@ -398,7 +417,7 @@ def csr_yardstick(p, g, x):
                 gm.indices.astype(np.int64)),
             torch.from_numpy(gm.weights), size=(n_pad, n_pad),
             check_invariants=False).to(DEVICE)
-    xf = x.reshape(-1, 1)
+    xf = x.reshape(x.shape[0], -1).T.contiguous()
     return lambda: a @ xf
 
 
@@ -418,12 +437,14 @@ def time_kernels(proc, g, errs, launches):
     kernel's device time (the profiler), the plain version, the bound
     from the filled entries (``bound_ms``) and from the ELL image
     (``ell_bound_ms``); for plus_times the CSR call and its device time;
-    the fused kernels over a dense and a sparse frontier.  Returns the
-    kernels line's four SpMV entries (plus_times)."""
+    the fused kernels over a dense and a sparse frontier; then the
+    compacted kernels at a serving wave's width (``time_wave_width``).
+    Returns the kernels line's four SpMV entries (plus_times) and the
+    wave-width records."""
     import torch
     from repro_torch.kernels import bsr_spmv as tk
     from repro_torch.kernels import ref as tref
-    out = {}
+    out, q64 = {}, []
     for semiring, variant, normalize in (
             ("min_plus", "base", None),
             ("plus_times", "base", "out_stochastic")):
@@ -441,7 +462,7 @@ def time_kernels(proc, g, errs, launches):
         lib = lib_device = None
         if semiring == "plus_times":
             csr = csr_yardstick(p, g, x)
-            err = float((csr().reshape(y_ell.shape) - y_ell).abs().max())
+            err = float((csr().T.reshape(y_ell.shape) - y_ell).abs().max())
             if err > 1e-5:
                 raise AssertionError(f"CSR yardstick disagrees: {err}")
             lib = cuda_ms(csr)
@@ -507,6 +528,7 @@ def time_kernels(proc, g, errs, launches):
                     library_ms=None, active_rows=int(act.sum()))
                 emit(phase="time", **rec)
                 out[(name, semiring, frontier)] = rec
+        q64.extend(time_wave_width(p, g, index, semiring, rule, sc))
         torch.cuda.empty_cache()
 
     def entry(name, r, replaces):
@@ -528,7 +550,70 @@ def time_kernels(proc, g, errs, launches):
          "src/repro/kernels/bsr_spmv.py:136"),
         ("bsr_spmv_fused_compact",
          ("bsr_spmv_fused_compact", "plus_times", "dense"),
-         "src/repro/kernels/bsr_spmv.py:324"))]
+         "src/repro/kernels/bsr_spmv.py:324"))], q64
+
+
+WAVE = 64   # GraphService.max_wave and WavePolicy.max_wave: a full wave
+
+
+def time_wave_width(p, g, index, semiring, rule, sc):
+    """The compacted kernels at Q = ``WAVE``, the query width of a full
+    serving wave, on a full-scale plan: the call (CUDA events, median of
+    10) and device time (profiler), the plain version, the bound of the
+    filled entries at Q 64 (``entry_bytes(index, 64)``), and for
+    plus_times ``torch.sparse.mm`` of the CSR matrix by the (n_pad, 64)
+    block; the fused kernel over a dense frontier in every query.  Each
+    kernel against its plain version bit for bit first."""
+    import torch
+    from repro_torch.kernels import bsr_spmv as tk
+    from repro_torch.kernels import ref as tref
+    gen = torch.Generator().manual_seed(64)
+    x = torch.rand((WAVE, p.r_pad, p.b), generator=gen).to(p.device)
+    if semiring == "plus_times":
+        x = x / p.n
+    args = (p.vals, p.cols, p.nnz, x, semiring)
+    call = lambda: tk.bsr_spmv(*args, index=index)  # noqa: E731
+    plain = lambda: tref.bsr_spmv_compact_ref(index, x, semiring)  # noqa
+    y = call()
+    if not torch.equal(y, plain()):
+        raise AssertionError(f"bsr_spmv_compact != plain at Q {WAVE}")
+    lib = lib_device = None
+    if semiring == "plus_times":
+        csr = csr_yardstick(p, g, x)
+        err = float((csr().T.reshape(y.shape) - y).abs().max())
+        if err > 1e-5:
+            raise AssertionError(f"CSR yardstick disagrees at Q {WAVE}: "
+                                 f"{err}")
+        lib, lib_device = cuda_ms(csr), kernel_device_ms(csr)
+        del csr
+    nb = entry_bytes(index, WAVE)
+    recs = [dict(kernel="bsr_spmv_compact", semiring=semiring, q=WAVE,
+                 ms=cuda_ms(call),
+                 device_ms=kernel_device_ms(call,
+                                            KERNEL_KEYS["bsr_spmv_compact"]),
+                 plain_ms=cuda_ms(plain, reps=3, warmup=1), bytes=nb,
+                 bound_ms=nb / HBM_BYTES_PER_S * 1e3, library_ms=lib,
+                 library_device_ms=lib_device)]
+    act = p.valid.any(dim=1)[None].expand(WAVE, -1).contiguous()
+    fargs = (p.vals, p.cols, p.nnz, x, x, p.valid, act, *sc, semiring, rule)
+    fcall = lambda: tk.bsr_spmv_fused(*fargs, index=index)  # noqa: E731
+    fplain = lambda: tref.bsr_spmv_fused_compact_ref(  # noqa: E731
+        index, *fargs[3:])
+    for a, b_ in zip(fcall(), fplain()):
+        if not torch.equal(a, b_):
+            raise AssertionError(f"bsr_spmv_fused_compact != plain at Q "
+                                 f"{WAVE}")
+    nb = entry_bytes(index, WAVE, act[0], fused=True)
+    recs.append(dict(
+        kernel="bsr_spmv_fused_compact", semiring=semiring, rule=rule,
+        frontier="dense", q=WAVE, ms=cuda_ms(fcall),
+        device_ms=kernel_device_ms(fcall,
+                                   KERNEL_KEYS["bsr_spmv_fused_compact"]),
+        plain_ms=cuda_ms(fplain, reps=3, warmup=1), bytes=nb,
+        bound_ms=nb / HBM_BYTES_PER_S * 1e3, library_ms=None))
+    for rec in recs:
+        emit(phase="time_q64", **rec)
+    return recs
 
 
 # -- the main path -----------------------------------------------------------
@@ -718,7 +803,8 @@ def main_path(errs, gen):
         t1 = time.perf_counter()
         p = proc.prepare(key[0], variant=key[1], normalize=key[2])
         plans[key] = p
-        emit(phase="prepare", plan=list(key), seconds=time.perf_counter() - t1,
+        PREPARE_S[key] = time.perf_counter() - t1
+        emit(phase="prepare", plan=list(key), seconds=PREPARE_S[key],
              r_pad=p.r_pad, k_max=p.k_max, tiles=p.tiles_total,
              edges=p.edges_total, fill=p.edges_total / max(
                  p.tiles_total * p.b * p.b, 1.0),
@@ -988,6 +1074,502 @@ def platform_phase(proc, res):
          nale_speedup_over_gpu=gpu.time_s / nale.time_s,
          nale_perf_per_watt_over_cpu=nale.perf_per_watt / cpu.perf_per_watt,
          nale_perf_per_watt_over_gpu=nale.perf_per_watt / gpu.perf_per_watt)
+
+
+# -- graph serving: GraphServer over the full-scale plans --------------------
+
+SERVE_SSSP, SERVE_BFS, SERVE_CLIENTS = 256, 64, 8
+SERVE_SAMPLES = {"sssp": 8, "bfs": 4}
+SERVE_WAIT_S = 600           # the bound on every wait for a request
+# the plans the traffic reads (sssp, bfs, pagerank, cc), handed from the
+# main path's session to the service's store rather than built again
+SERVE_PLANS = (("min_plus", "base", None), ("min_plus", "unit", None),
+               ("plus_times", "base", "out_stochastic"),
+               ("min_select", "undirected", None))
+SERVE_CACHE = ROOT / "build" / "plan_cache"
+
+
+class WaveLog:
+    """Wraps the served processor's ``run``: each call is one wave of
+    the service (or one request that does not coalesce).  Records its
+    width, wall, engine seconds (the runner from its first sweep to its
+    counters on the host; the rest of the wall is the session's host
+    work around it: x0 and the values, per source), stats and launches
+    per route.  The launch deltas are a wave's own while one wave runs
+    at a time (``WavePolicy(workers=1)``); ``exact`` is cleared for runs
+    that overlap on purpose.  It waits on its own stream, never on the
+    device: a device-wide synchronize from any thread invalidates a
+    capture open in another."""
+
+    def __init__(self, proc, tk):
+        import threading
+        from repro_torch.core import engine as E
+        self.proc, self.tk, self.real = proc, tk, proc.run
+        self.runs, self.exact, self.lock = [], True, threading.Lock()
+        self.engine = threading.local()
+        self.E, self.real_run = E, E._run
+
+        def timed_run(*a, **k):
+            import torch
+            t0 = time.perf_counter()
+            out = self.real_run(*a, **k)
+            torch.cuda.current_stream().synchronize()
+            self.engine.seconds = time.perf_counter() - t0
+            return out
+        E._run = timed_run
+        proc.run = self
+
+    def __call__(self, spec):
+        import torch
+        before = dict(self.tk.launch_counts)
+        self.engine.seconds = 0.0
+        t0 = time.perf_counter()
+        res = self.real(spec)
+        torch.cuda.current_stream().synchronize()
+        wall = time.perf_counter() - t0
+        with self.lock:
+            self.runs.append(dict(
+                algo=spec.algo, width=len(spec.sources) or 1, wall_s=wall,
+                engine_s=self.engine.seconds, stats=res.stats,
+                fused=res.policy.kernel.fuse_frontier, s=res.prepared.s,
+                exact=self.exact, launches={
+                    k: self.tk.launch_counts[k] - before[k] for k in before}))
+        return res
+
+    @staticmethod
+    def summary(runs):
+        return [dict(algo=r["algo"], width=r["width"], mode=r["stats"].mode,
+                     wall_s=r["wall_s"], engine_s=r["engine_s"],
+                     host_s=r["wall_s"] - r["engine_s"],
+                     sweeps=r["stats"].sweeps,
+                     capture_s=r["stats"].capture_s) for r in runs]
+
+    def check(self, runs):
+        """Every run read the host once a sweep; every exact run launched
+        its route sweeps × s times (async) or once a sweep (sync)."""
+        for r in runs:
+            st = r["stats"]
+            if st.host_syncs != st.sweeps:
+                raise AssertionError(f"{r['algo']} x{r['width']}: "
+                                     f"{st.host_syncs} host reads in "
+                                     f"{st.sweeps} sweeps")
+            route = ("bsr_spmv_fused_compact" if r["fused"]
+                     else "bsr_spmv_compact")
+            want = st.sweeps * (r["s"] if st.mode == "async" else 1)
+            if r["exact"] and r["launches"] != {
+                    k: want if k == route else 0 for k in r["launches"]}:
+                raise AssertionError(f"{r['algo']} x{r['width']} "
+                                     f"({st.mode}): launches "
+                                     f"{r['launches']}, want {want} of "
+                                     f"{route}")
+
+    def close(self):
+        del self.proc.run          # the class's method again
+        self.E._run = self.real_run
+
+
+def graph_traffic(server, specs):
+    """``SERVE_CLIENTS`` threads submit ``specs`` round robin into
+    ``server`` at once; every future must resolve without an error.
+    Returns the results in order and requests/s (first submit to last
+    completion) with each request's latency, submit to completion."""
+    import threading
+    import numpy as np
+    n = len(specs)
+    futs, t_sub, t_done = [None] * n, [0.0] * n, [0.0] * n
+    barrier = threading.Barrier(SERVE_CLIENTS)
+
+    def client(i):
+        barrier.wait(timeout=SERVE_WAIT_S)
+        for j in range(i, n, SERVE_CLIENTS):
+            t_sub[j] = time.perf_counter()
+            futs[j] = server.submit("ca", specs[j])
+            futs[j].add_done_callback(
+                lambda _f, j=j: t_done.__setitem__(j, time.perf_counter()))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_WAIT_S)
+    if any(t.is_alive() for t in threads) or None in futs:
+        raise AssertionError("a client thread did not finish submitting")
+    results = [f.result(timeout=SERVE_WAIT_S) for f in futs]
+    end = time.perf_counter() + 10
+    while 0.0 in t_done and time.perf_counter() < end:
+        time.sleep(0.001)          # the last callbacks run after result()
+    lat = np.asarray(t_done) - np.asarray(t_sub)
+    span = max(t_done) - min(t_sub)
+    return results, dict(requests=n, seconds=span, requests_per_s=n / span,
+                         p50_ms=float(np.percentile(lat, 50)) * 1e3,
+                         p99_ms=float(np.percentile(lat, 99)) * 1e3,
+                         max_ms=float(lat.max()) * 1e3)
+
+
+def held_capture():
+    """Patch ``engine._CapturedSweep`` so that the first capture stays
+    open (inside ``torch.cuda.graph``) until ``release`` is set, so that
+    what other threads do meanwhile overlaps it for certain.  Returns
+    (capturing, release, undo)."""
+    import threading
+    from repro_torch.core import engine as E
+    capturing, release = threading.Event(), threading.Event()
+    real = E._CapturedSweep
+
+    class Held(real):
+        def __init__(self, sweep, device):
+            def hold():
+                flags = sweep()
+                if not capturing.is_set():
+                    capturing.set()
+                    release.wait(timeout=SERVE_WAIT_S)
+                return flags
+            super().__init__(hold, device)
+
+    E._CapturedSweep = Held
+    return capturing, release, lambda: setattr(E, "_CapturedSweep", real)
+
+
+def concurrency_check(svc, log, sssp_src, want, sync, sync_want):
+    """One 64-wide async wave captures its sweep (held open) while a
+    second thread uploads a plan read from disk through
+    ``GraphServer.register(warm=True)`` and a third runs a sync query on
+    the served graph: all three equal to their serial runs, and the
+    launches of the window exactly the two queries' own."""
+    import shutil
+    import threading
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core import graph as G
+    from repro_torch.kernels import bsr_spmv as tk
+    small = G.make_paper_graph("ca", scale=SMALL_SCALE, seed=0)
+    cache = SERVE_CACHE / "small"
+    shutil.rmtree(cache, ignore_errors=True)
+    first = api.GraphServer(cache_dir=str(cache), device=DEVICE)
+    first.register("small", small, b=16, num_clusters=64)
+    small_want = first.run("small", api.QuerySpec(
+        algo="sssp", sources=(3,))).values
+    first.close()                  # its access log names min_plus
+    loader = api.GraphServer(cache_dir=str(cache), device=DEVICE)
+    server = api.GraphServer(service=svc, wave=api.WavePolicy(
+        max_wave=WAVE, max_wait_s=0.005, workers=1), autostart=False)
+    srcs = sssp_src[:WAVE]
+    futs = [server.submit("ca", api.QuerySpec(algo="sssp", sources=(s,)))
+            for s in srcs]
+    out, errors = {}, []
+    capturing, release, undo = held_capture()
+
+    def upload():
+        capturing.wait(timeout=SERVE_WAIT_S)
+        try:
+            loader.register("small", small, b=16, num_clusters=64,
+                            warm=True)
+            out["warm"] = loader.wait_warm(timeout=SERVE_WAIT_S)
+        except Exception as e:
+            errors.append(e)
+
+    def sync_query():
+        capturing.wait(timeout=SERVE_WAIT_S)
+        try:
+            out["sync"] = svc.run("ca", api.QuerySpec(
+                algo="sssp", sources=(srcs[0],), policy=sync)).values
+        except Exception as e:
+            errors.append(e)
+
+    others = [threading.Thread(target=upload),
+              threading.Thread(target=sync_query)]
+    n_runs = len(log.runs)
+    before = dict(tk.launch_counts)
+    log.exact = False
+    try:
+        for t in others:
+            t.start()
+        server.start()
+        for t in others:
+            t.join(timeout=SERVE_WAIT_S)
+        release.set()
+        res = [f.result(timeout=SERVE_WAIT_S) for f in futs]
+    finally:
+        release.set()
+        undo()
+        log.exact = True
+    launches = {k: tk.launch_counts[k] - before[k] for k in before}
+    if any(t.is_alive() for t in others) or errors or not out.get("warm"):
+        raise AssertionError(f"concurrency: {errors or 'a thread hung'}")
+    if not capturing.is_set() or res[0].stats.capture_s <= 0:
+        raise AssertionError("concurrency: the wave never captured")
+    for r, s in zip(res, srcs):
+        np.testing.assert_array_equal(r.values, want[s])
+    np.testing.assert_array_equal(out["sync"], sync_want)
+    window = log.runs[n_runs:]
+    log.check(window)
+    expect = {}
+    for r in window:
+        route = ("bsr_spmv_fused_compact" if r["fused"]
+                 else "bsr_spmv_compact")
+        n = r["stats"].sweeps * (r["s"] if r["stats"].mode == "async" else 1)
+        expect[route] = expect.get(route, 0) + n
+    if launches != {k: expect.get(k, 0) for k in launches}:
+        raise AssertionError(f"concurrency: launches {launches}, the two "
+                             f"queries' own {expect}")
+    ls = loader.stats()
+    if ls["server"]["plans_warmed"] != 1 or \
+            ls["service"]["plan_store"]["disk_hits"] != 1:
+        raise AssertionError(f"concurrency: the upload did not happen: "
+                             f"{ls}")
+    np.testing.assert_array_equal(loader.run("small", api.QuerySpec(
+        algo="sssp", sources=(3,))).values, small_want)
+    server.close()
+    loader.close()
+    shutil.rmtree(cache, ignore_errors=True)
+    emit(phase="serving_concurrency", wave=len(srcs),
+         capture_s=res[0].stats.capture_s, sweeps=res[0].stats.sweeps,
+         launches=launches, equal=True)
+
+
+def disk_tier(proc, g, plans, want0):
+    """A ``GraphService(cache_dir=...)`` writes the min_plus plan; a
+    fresh one on the same directory loads it (``prepare_calls == 0``),
+    builds its compacted index on the card at its first query and answers
+    it bit-equal to the first; then an eviction frees the loaded plan's
+    device bytes.  At the full scale when the disk holds three plans'
+    bytes, else at ``SMALL_SCALE`` (printed)."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core import engine as E
+    from repro_torch.core import graph as G
+    from repro_torch.serve import graph as SG
+    SERVE_CACHE.mkdir(parents=True, exist_ok=True)
+    key = ("min_plus", "base", None)
+    p = plans[key]
+    free = shutil.disk_usage(SERVE_CACHE).free
+    full = free >= 3 * p.nbytes
+    if full:
+        gd, other = g, plans[("min_plus", "unit", None)]
+        prepare_s = PREPARE_S[key]
+    else:
+        gd = G.make_paper_graph("ca", scale=SMALL_SCALE, seed=0)
+        small = api.GraphProcessor(gd, b=16, num_clusters=64, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = small.prepare("min_plus")
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        other = small.prepare("min_plus", variant="unit")
+    cache = SERVE_CACHE / "disk"
+    shutil.rmtree(cache, ignore_errors=True)
+    first = api.GraphService(cache_dir=str(cache), max_plan_bytes=p.nbytes,
+                             device=DEVICE)
+    fproc = first.register("ca", gd, b=16, num_clusters=64)
+    pk = fproc.plan_key("min_plus")
+    t0 = time.perf_counter()
+    first.store.put(gd.fingerprint(), pk, p)
+    write_s = time.perf_counter() - t0
+    path = cache / SG._plan_filename(gd.fingerprint(), pk)
+    spec = api.QuerySpec(algo="sssp", sources=(0,))
+    want = first.run("ca", spec).values if not full else want0
+    again = api.GraphService(cache_dir=str(cache), max_plan_bytes=p.nbytes,
+                             device=DEVICE)
+    aproc = again.register("ca", gd, b=16, num_clusters=64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = aproc.prepare("min_plus")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if aproc.cache_info()["prepare_calls"] != 0 or \
+            again.store.stats()["disk_hits"] != 1 or \
+            loaded.compact is not None or \
+            loaded.vals.device.type != torch.device(DEVICE).type:
+        raise AssertionError("disk tier: the plan was not read from disk")
+    got = again.run("ca", spec).values
+    np.testing.assert_array_equal(got, want)
+    if loaded.compact is None or \
+            loaded.compact.pairs.device != loaded.vals.device:
+        raise AssertionError("disk tier: no compacted index on the card")
+    # the loaded plan in a store of its own, the only holder left; a plan
+    # already on the card evicts it, and its bytes leave the card (its
+    # device fields and its compacted index: ``nbytes`` also counts the
+    # permutations, which live on the host)
+    held = loaded.compact.nbytes + sum(
+        getattr(loaded, f).numel() * getattr(loaded, f).element_size()
+        for f in E._PREPARED_DEVICE_FIELDS)
+    store = api.PlanStore(max_bytes=loaded.nbytes, device=DEVICE)
+    store.put(gd.fingerprint(), pk, loaded)
+    del loaded, again, aproc
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    store.put(gd.fingerprint(), fproc.plan_key("min_plus", "unit"), other)
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    if store.stats()["evictions"] != 1 or freed < 0.99 * held:
+        raise AssertionError(f"eviction freed {freed} B of {held}")
+    emit(phase="serving_disk", scale=CA_SCALE if full else SMALL_SCALE,
+         disk_free_gb=free / 1e9, plan_gb=p.nbytes / 1e9,
+         file_gb=path.stat().st_size / 1e9, write_s=write_s, load_s=load_s,
+         prepare_s=prepare_s, load_over_prepare=load_s / prepare_s,
+         prepare_calls=0, equal=True, evicted_device_gb=held / 1e9,
+         evicted_freed_gb=freed / 1e9)
+    shutil.rmtree(cache, ignore_errors=True)
+
+
+def graph_serving(proc, g, res, q64, kernels):
+    """The serving layer on the card: a ``GraphServer`` over the
+    full-scale CA plans (handed from the main path's session to the
+    service's store), 8 client threads, coalesced waves of up to 64
+    sources on the compacted kernels; then the same sssp sources under a
+    sync fused policy, a transient dispatch fault, the concurrency check,
+    the disk tier and an eviction.  Gates: every future resolves, sampled
+    results bit-equal to direct runs, oracles, batched waves, one host
+    read a sweep and exact launches per wave."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch import resilience as rz
+    from repro_torch.kernels import bsr_spmv as tk
+
+    fp = g.fingerprint()
+    plans = {k: proc.prepare(k[0], variant=k[1], normalize=k[2])
+             for k in SERVE_PLANS}
+    budget = sum(p.nbytes for p in plans.values())  # these four fit
+    svc = api.GraphService(max_plan_bytes=budget, device=DEVICE)
+    sproc = svc.register("ca", g, b=16, num_clusters=64)
+    for k, p in plans.items():
+        svc.store.put(fp, sproc.plan_key(k[0], k[1], normalize=k[2]), p)
+    st = svc.store.stats()
+    emit(phase="serving_store", max_plan_bytes=budget, plans=st["plans"],
+         plan_gb={"/".join(map(str, k)): p.nbytes / 1e9
+                  for k, p in plans.items()}, evictions=st["evictions"])
+    if st["plans"] != len(plans) or st["evictions"]:
+        raise AssertionError(f"serving store: {st}")
+
+    rng = np.random.default_rng(0)
+    sssp_src = [int(v) for v in rng.integers(0, g.n, SERVE_SSSP)]
+    bfs_src = [int(v) for v in rng.integers(0, g.n, SERVE_BFS)]
+    specs = ([api.QuerySpec(algo="sssp", sources=(s,)) for s in sssp_src]
+             + [api.QuerySpec(algo="bfs", sources=(s,)) for s in bfs_src]
+             + [api.QuerySpec(algo="pagerank"), api.QuerySpec(algo="cc")])
+    specs = [specs[i] for i in rng.permutation(len(specs))]
+    sync = api.ExecutionPolicy(mode="sync", kernel=api.KernelSpec(
+        impl="pallas", fuse_frontier=True))
+
+    log = WaveLog(sproc, tk)
+    server = api.GraphServer(service=svc, wave=api.WavePolicy(
+        max_wave=WAVE, max_wait_s=0.005, workers=1))
+    tk.reset_launch_counts()       # the serving path starts here
+    torch.cuda.reset_peak_memory_stats()
+    metrics = {}
+    results, metrics["default"] = graph_traffic(server, specs)
+    values = {(sp.algo, sp.sources[0] if sp.sources else None): r.values
+              for sp, r in zip(specs, results)}   # a source may repeat
+    n_default = len(log.runs)
+    results, metrics["sync"] = graph_traffic(server, [
+        api.QuerySpec(algo="sssp", sources=(s,), policy=sync)
+        for s in sssp_src])
+    by_src = {s: values[("sssp", s)] for s in sssp_src}
+    sync_by_src = {s: r.values for s, r in zip(sssp_src, results)}
+    for s in sssp_src:             # sssp is exact: both engines agree
+        np.testing.assert_array_equal(sync_by_src[s], by_src[s])
+    for name, runs in (("default", log.runs[:n_default]),
+                       ("sync", log.runs[n_default:])):
+        widths = [r["width"] for r in runs]
+        emit(phase="serving_traffic", policy=name, **metrics[name],
+             waves=len(runs), widths=sorted(widths, reverse=True),
+             mean_width=float(np.mean(widths)),
+             wave_wall_s=sum(r["wall_s"] for r in runs),
+             wave_engine_s=sum(r["engine_s"] for r in runs),
+             per_wave=WaveLog.summary(runs))
+    log.check(log.runs)
+    ss = svc.stats()
+    if ss["batched_runs"] < 4 or \
+            ss["coalesced_queries"] / ss["batched_runs"] <= 1:
+        raise AssertionError(f"serving: waves did not batch: {ss}")
+
+    # a transient dispatch fault: the retried request, the same values
+    retries = server.stats()["scheduler"]["retries"]
+    with rz.inject(rz.FaultPlan([rz.FaultSpec("sched.dispatch", count=1)],
+                                seed=0)) as plan:
+        r = server.submit("ca", api.QuerySpec(
+            algo="sssp", sources=(sssp_src[1],))).result(SERVE_WAIT_S)
+    np.testing.assert_array_equal(r.values, by_src[sssp_src[1]])
+    if server.stats()["scheduler"]["retries"] != retries + 1 or \
+            plan.stats()["sched.dispatch"]["injected"] != 1:
+        raise AssertionError("serving: the faulted dispatch was not "
+                             "retried once")
+    concurrency_check(svc, log, sssp_src, by_src, sync,
+                      sync_by_src[sssp_src[0]])
+    server.close()
+    launches = dict(tk.launch_counts)  # the serving path ends here
+    peak = torch.cuda.max_memory_allocated()
+    log.check(log.runs)
+    emit(phase="serving_launches", **launches)
+    for k, v in launches.items():
+        if ("compact" in k) != (v > 0):
+            raise AssertionError(f"serving path: {k} launched {v} times")
+    log.close()
+
+    # the direct runs the sampled results are held to, and the oracles
+    pick = np.random.default_rng(1)
+    t0 = time.perf_counter()
+    for algo, srcs in (("sssp", sssp_src), ("bfs", bfs_src)):
+        for j, i in enumerate(pick.choice(len(srcs), SERVE_SAMPLES[algo],
+                                          replace=False)):
+            got = values[(algo, srcs[i])]
+            direct = sproc.run(api.QuerySpec(algo=algo, sources=(srcs[i],)))
+            np.testing.assert_array_equal(got, direct.values)
+            if j < (2 if algo == "sssp" else 1):
+                check_oracle(algo, g, got, srcs[i])
+    check_oracle("pagerank", g, values[("pagerank", None)], tol=1e-8)
+    check_oracle("cc", g, values[("cc", None)])
+    emit(phase="serving_checks", seconds=time.perf_counter() - t0,
+         samples=SERVE_SAMPLES, oracles={"sssp": 2, "bfs": 1, "pagerank": 1,
+                                         "cc": 1}, ok=True)
+
+    wave = next(r for r in log.runs if r["algo"] == "sssp"
+                and r["width"] == WAVE and r["stats"].mode == "async")
+    capped = api.ExecutionPolicy(max_sweeps=ASYNC_PROFILE_SWEEPS)
+    wall, events = profiled(lambda: sproc.run(api.QuerySpec(
+        algo="sssp", sources=tuple(sssp_src[:WAVE]), batched=True,
+        policy=capped)))
+    busy, top = device_busy(events)
+    emit(phase="serving_wave", width=WAVE, wall_s=wave["wall_s"],
+         engine_s=wave["engine_s"], host_s=wave["wall_s"] - wave["engine_s"],
+         sweeps=wave["stats"].sweeps, capture_s=wave["stats"].capture_s,
+         tile_work=wave["stats"].tile_work,
+         profiled_sweeps=ASYNC_PROFILE_SWEEPS, profiled_wall_s=wall,
+         device_busy_s=busy if busy > 0 else "not measured",
+         idle_share=1 - busy / wall if busy > 0 else "not measured",
+         device_ms_per_sweep=(busy / ASYNC_PROFILE_SWEEPS * 1e3
+                              if busy > 0 else "not measured"),
+         top=top, peak_device_gb=peak / 1e9)
+    for rec in q64:              # the Q-64 rows beside the serving path
+        emit(phase="time_q64_launches", kernel=rec["kernel"],
+             semiring=rec["semiring"],
+             serving_launches=launches[rec["kernel"]])
+    for entry in kernels:
+        entry["serving_launches"] = launches[entry["name"]]
+    disk_tier(proc, g, plans, res["sssp/async/ref"].values)
+
+
+def serving_phase():
+    """The ``graph_serving`` phase alone, after ``setup()``: the
+    full-scale CA graph and the four plans its traffic reads are built
+    here (no main path before it, no kernel times after it)."""
+    from repro_torch import api
+    from repro_torch.core import graph as G
+    g = G.make_paper_graph("ca", scale=CA_SCALE, seed=0)
+    proc = api.GraphProcessor(g, b=16, num_clusters=64, device=DEVICE)
+    for key in SERVE_PLANS:
+        t0 = time.perf_counter()
+        p = proc.prepare(key[0], variant=key[1], normalize=key[2])
+        PREPARE_S[key] = time.perf_counter() - t0
+        p.compact_index()
+    graph_serving(proc, g, {"sssp/async/ref": proc.sssp(0)}, [], [])
 
 
 # -- LM serving: flash attention and granite-3-2b ---------------------------
@@ -2114,9 +2696,10 @@ def graph_phases():
     emit(phase="kernel_vs_plain", ok=True, max_abs_err=errs.max)
 
     proc, g, launches, res = main_path(errs, gen)
-    kernels = time_kernels(proc, g, errs, launches)
+    kernels, q64 = time_kernels(proc, g, errs, launches)
     platform_phase(proc, res)
     runners_phase(proc, g)
+    graph_serving(proc, g, res, q64, kernels)
     del proc, g, p, res
     gc.collect()
     torch.cuda.empty_cache()  # 25.4 GB of plans, before the LM phases

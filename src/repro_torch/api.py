@@ -1,4 +1,4 @@
-"""Public session API — ``repro_torch.api``.
+"""Public session + serving API — ``repro_torch.api``.
 
     from repro_torch import api
     proc = api.GraphProcessor(g, b=16, num_clusters=64)   # on cuda
@@ -8,8 +8,32 @@
         impl="pallas", fuse_frontier=True))
     d2 = proc.sssp(0, policy=fast)
 
-The serving layer (``GraphService``, ``GraphServer``, ``PlanStore``) and
-the distributed engines are not ported yet (ROADMAP queue 1).
+Serving many graphs (``serve/graph.py``): a ``GraphService`` holds a
+named graph registry, a shared byte-bounded LRU plan store on the card
+with an on-disk tier (warm restarts skip the compile pipeline), and a
+``submit``/``gather`` front door that coalesces same-plan single-source
+queries into batched runs:
+
+    svc = api.GraphService(cache_dir=".plan-cache")       # on cuda
+    svc.register("roads", g, b=16, num_clusters=64)
+    t = svc.submit("roads", api.QuerySpec(algo="sssp", sources=(0,)))
+    dist = svc.gather()[t].values
+
+Serving many clients (``serve/server.py``): a ``GraphServer`` accepts
+concurrent ``submit(...) → Future`` requests; a background wave
+scheduler closes batched waves across clients (continuous batching),
+with deadlines, ``Backpressure`` admission control and plan warming
+from the store's access log:
+
+    server = api.GraphServer(cache_dir=".plan-cache")
+    server.register("roads", g, b=16, num_clusters=64)
+    fut = server.submit("roads", api.QuerySpec(algo="sssp", sources=(0,)),
+                        deadline=0.5)
+    dist = fut.result().values
+
+Every entry point runs on ``cuda`` unless ``device=`` names another
+device.  The distributed engines and the autotuner are not ported yet
+(ROADMAP queue 1).
 """
 
 from .core.algorithms import (AlgorithmSpec, get_algorithm,  # noqa: F401
@@ -23,11 +47,19 @@ from .core.engine import (PlanIntegrityError, Prepared,  # noqa: F401
 from .kernels.spec import KernelSpec  # noqa: F401
 from .resilience import (FaultInjected, FaultPlan, FaultSpec,  # noqa: F401
                          inject, is_transient)
+from .serve.graph import GraphService, PlanStore  # noqa: F401
+from .serve.sched import (Backpressure, DeadlineExceeded,  # noqa: F401
+                          ServerClosed, WavePolicy, WaveScheduler,
+                          WaveTimeout)
+from .serve.server import GraphServer  # noqa: F401
 
 __all__ = ["AlgorithmSpec", "ExecutionPolicy", "GraphProcessor",
-           "KernelSpec", "PlanKey", "QuerySpec", "Result", "Prepared",
-           "RunStats", "serialize_prepared", "deserialize_prepared",
-           "prepared_from_numpy", "PlanIntegrityError", "degrade_policy",
-           "FaultPlan", "FaultSpec", "FaultInjected", "inject",
-           "is_transient", "get_algorithm", "register_algorithm",
+           "GraphService", "KernelSpec", "PlanKey", "PlanStore",
+           "QuerySpec", "Result", "Prepared", "RunStats",
+           "serialize_prepared", "deserialize_prepared",
+           "prepared_from_numpy", "GraphServer", "WaveScheduler",
+           "WavePolicy", "DeadlineExceeded", "Backpressure",
+           "ServerClosed", "WaveTimeout", "PlanIntegrityError",
+           "degrade_policy", "FaultPlan", "FaultSpec", "FaultInjected",
+           "inject", "is_transient", "get_algorithm", "register_algorithm",
            "registered_algorithms"]

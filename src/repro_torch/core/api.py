@@ -281,12 +281,20 @@ class GraphProcessor:
     (clustering, permutation, BSR build, device upload), plus derived
     graph variants (unit-weight, undirected) built at most once.  Plans
     live on ``device`` (``cuda`` unless named).
+
+    When ``store`` (a ``serve.graph.PlanStore``) is injected, plans are
+    borrowed from it instead of owned: every ``prepare`` consults the
+    shared store under ``(graph_fingerprint, PlanKey)``, so plans are
+    shared across processors, across the graphs of one ``GraphService``
+    and, through the store's disk tier, across process restarts.
+    Eviction then lives in the store alone; the processor keeps no
+    private copy.
     """
 
     def __init__(self, g: Graph, b: int = 32,
                  num_clusters: Optional[int] = None, clustered: bool = True,
                  seed: int = 0, policy: Optional[ExecutionPolicy] = None,
-                 device=None):
+                 store=None, device=None):
         self.device = resolve_device(device)
         self.g = g
         self.b = b
@@ -294,6 +302,7 @@ class GraphProcessor:
         self.clustered = clustered
         self.seed = seed
         self.policy = policy or ExecutionPolicy()
+        self.store = store
         self._plans: Dict[PlanKey, Prepared] = {}
         self._variants: Dict[str, Graph] = {"base": g}
         self._prepare_calls = 0
@@ -327,22 +336,40 @@ class GraphProcessor:
     def prepare(self, semiring: str, variant: str = "base",
                 pull: bool = True, normalize: Optional[str] = None
                 ) -> Prepared:
-        """Fetch (or build and cache) the Prepared image for a plan."""
+        """Fetch (or build and cache) the Prepared image for a plan.
+
+        With an injected store the lookup (and the LRU and byte
+        accounting) is delegated; without one, plans live in a
+        session-local dict."""
         key = self.plan_key(semiring, variant, pull, normalize)
+        if self.store is not None:
+            p = self.store.get(self.g.fingerprint(), key)
+            if p is None:
+                self._prepare_calls += 1
+                p = self._build(semiring, variant, pull, normalize)
+                self.store.put(self.g.fingerprint(), key, p)
+            return p
         p = self._plans.get(key)
         if p is None:
             self._prepare_calls += 1
-            p = eng.prepare(self._variant(variant), semiring, b=self.b,
-                            num_clusters=self.num_clusters, pull=pull,
-                            clustered=self.clustered, normalize=normalize,
-                            seed=self.seed, device=self.device)
+            p = self._build(semiring, variant, pull, normalize)
             self._plans[key] = p
         return p
 
+    def _build(self, semiring: str, variant: str, pull: bool,
+               normalize: Optional[str]) -> Prepared:
+        return eng.prepare(self._variant(variant), semiring, b=self.b,
+                           num_clusters=self.num_clusters, pull=pull,
+                           clustered=self.clustered, normalize=normalize,
+                           seed=self.seed, device=self.device)
+
     def cache_info(self) -> dict:
-        return {"plans": len(self._plans),
+        info = {"plans": len(self._plans),
                 "prepare_calls": self._prepare_calls,
                 "keys": list(self._plans)}
+        if self.store is not None:
+            info["store"] = self.store.stats()
+        return info
 
     # -- unified run entry point ----------------------------------------
 

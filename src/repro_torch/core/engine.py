@@ -42,6 +42,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import threading
 import time
 from typing import Optional, Tuple
 
@@ -102,18 +103,39 @@ class Prepared:
     # query (``compact_index``); not part of the plan's bytes, == or repr
     compact: Optional[bsr_spmv.CompactIndex] = dataclasses.field(
         default=None, compare=False, repr=False)
+    _index_lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, init=False, compare=False,
+        repr=False)
 
     @property
     def device(self) -> torch.device:
         return self.vals.device
 
+    @property
+    def nbytes(self) -> int:
+        """Footprint of the plan (device tile image + host metadata), the
+        unit of the plan store's byte budget, by the JAX package's formula
+        so that both stores evict in the same order.  Read from tensor
+        metadata, with no device-to-host copy.  The compacted index is
+        not counted: the reference has none."""
+        dev = sum(getattr(self, f).numel() * getattr(self, f).element_size()
+                  for f in _PREPARED_DEVICE_FIELDS)
+        host = int(self.perm.nbytes) + int(self.inv_perm.nbytes) + \
+            int(self.clustering.assign.nbytes) + \
+            int(self.clustering.perm.nbytes)
+        return dev + host
+
     def compact_index(self) -> Optional[bsr_spmv.CompactIndex]:
         """The SpMV kernels' compacted index of this plan, built once on
-        the plan's device; None for a custom semiring, which runs the
-        plain versions over the ELL arrays."""
+        the plan's device (under the plan's lock: two threads' first
+        queries build it once, and neither reads it half built); None for
+        a custom semiring, which runs the plain versions over the ELL
+        arrays."""
         if self.compact is None and self.semiring in sr.BUILTIN:
-            self.compact = bsr_spmv.build_compact_index(
-                self.vals, self.cols, self.nnz, self.semiring)
+            with self._index_lock:
+                if self.compact is None:
+                    self.compact = bsr_spmv.build_compact_index(
+                        self.vals, self.cols, self.nnz, self.semiring)
         return self.compact
 
     def to_blocks(self, x_flat: np.ndarray, pad: float) -> torch.Tensor:
@@ -553,21 +575,37 @@ def _sync_loop_fused(st: _Loop, changed0: torch.Tensor, semiring_name: str,
     return x, c
 
 
+# Captures run one at a time in the process, each on a side stream of its
+# device, in thread-local mode: CUDA then forbids the capturing thread
+# alone any call that would break the capture, so other threads (a plan
+# upload, a sync wave of the serving layer) go on working on their own
+# streams while a sweep is captured.  In the default, global mode such a
+# call from another thread fails and invalidates the capture.  No mode
+# admits a device-wide synchronize (``torch.cuda.synchronize``) while a
+# stream captures: one from any thread invalidates the capture, which
+# then raises.  The engines never make one; ``torch.cuda.graph`` makes
+# one as it opens a capture, under the lock.
+_CAPTURE_LOCK = threading.Lock()
+
+
 class _CapturedSweep:
     """One async sweep captured as a CUDA graph, replayed for each later
     sweep.  The kernel wrappers count their launches in Python, which
-    runs once, at the capture, where nothing is launched: the capture's
-    counts are taken back out and added again at every replay, so
-    ``bsr_spmv.launch_counts`` stays exact.  A failed capture or replay
-    raises; nothing carries on eagerly."""
+    runs once, at the capture, where nothing is launched: the capture
+    records this thread's counts apart and adds them at every replay, so
+    ``bsr_spmv.launch_counts`` stays exact while other threads launch.
+    A failed capture or replay raises; nothing carries on eagerly."""
 
-    def __init__(self, sweep):
+    def __init__(self, sweep, device: torch.device):
         self.graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with bsr_spmv.capture_launches() as self.launches:
-            with torch.cuda.graph(self.graph):
-                self.flags = sweep()
-        self.seconds = time.perf_counter() - t0
+        with _CAPTURE_LOCK:
+            t0 = time.perf_counter()
+            with bsr_spmv.capture_launches() as self.launches:
+                with torch.cuda.graph(self.graph,
+                                      stream=torch.cuda.Stream(device),
+                                      capture_error_mode="thread_local"):
+                    self.flags = sweep()
+            self.seconds = time.perf_counter() - t0
 
     def __call__(self) -> torch.Tensor:
         self.graph.replay()
@@ -673,7 +711,7 @@ def _async_loop(st: _Loop, changed0: torch.Tensor, semiring_name: str,
             flags = sweep()
             eager = p.device.type != "cuda"  # on the card: capture next
         else:
-            replay = replay or _CapturedSweep(sweep)
+            replay = replay or _CapturedSweep(sweep, p.device)
             flags = replay()
         st.finish_sweep(live, ~st.read(flags))
     return x, c, (replay.seconds if replay else 0.0)

@@ -26,13 +26,15 @@ and ``-fmad=false`` (bit equality with the plain versions) into
 kernels is launched, and loads it with ``ctypes``; the C functions take
 raw pointers and the current stream and return the CUDA error code.
 
-Each wrapper adds one to ``launch_counts[name]`` where it launches its
-kernel, and nowhere else: ``bsr_spmv`` and ``bsr_spmv_fused`` count the
-ELL route, ``bsr_spmv_compact`` and ``bsr_spmv_fused_compact`` the
-compacted one.  Under a CUDA-graph capture a wrapper records its launch
-instead of making it; ``capture_launches`` and ``add_launches`` move those
-counts from the capture to each replay.  The wrappers read nothing from
-the device, so a capture may hold them.
+Each wrapper adds one to ``launch_counts[name]`` (``count_launch``)
+where it launches its kernel, and nowhere else: ``bsr_spmv`` and
+``bsr_spmv_fused`` count the ELL route, ``bsr_spmv_compact`` and
+``bsr_spmv_fused_compact`` the compacted one.  Under a CUDA-graph capture
+a wrapper records its launch instead of making it; ``capture_launches``
+keeps the capturing thread's counts apart and ``add_launches`` adds them
+at each replay, while launches of other threads count as they happen.
+The counts take a lock, so they stay exact under concurrent callers.  The
+wrappers read nothing from the device, so a capture may hold them.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import contextlib
 import ctypes
 import dataclasses
 import pathlib
+import threading
 
 import numpy as np
 import torch
@@ -67,30 +70,46 @@ launch_counts = {"bsr_spmv": 0, "bsr_spmv_fused": 0,
                  "bsr_spmv_compact": 0, "bsr_spmv_fused_compact": 0}
 
 
+_COUNT_LOCK = threading.Lock()
+_capturing = threading.local()   # .recorded: the open capture's counts
+
+
+def count_launch(name: str) -> None:
+    """One launch of ``name``'s kernel: into the capture this thread has
+    open (``capture_launches``), else into ``launch_counts``."""
+    recorded = getattr(_capturing, "recorded", None)
+    if recorded is not None:
+        recorded[name] += 1
+        return
+    with _COUNT_LOCK:
+        launch_counts[name] += 1
+
+
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    with _COUNT_LOCK:
+        for k in launch_counts:
+            launch_counts[k] = 0
 
 
 @contextlib.contextmanager
 def capture_launches():
     """Around a CUDA-graph capture: yields a dict that, on exit, holds the
-    launches the wrappers counted inside (recorded into the graph, not
-    made), and takes them back out of ``launch_counts``."""
-    before = dict(launch_counts)
-    recorded = {}
+    launches this thread's wrappers counted inside (recorded into the
+    graph, not made).  They never reach ``launch_counts``; launches of
+    other threads meanwhile do."""
+    recorded = dict.fromkeys(launch_counts, 0)
+    _capturing.recorded = recorded
     try:
         yield recorded
     finally:
-        for k in launch_counts:
-            recorded[k] = launch_counts[k] - before[k]
-            launch_counts[k] = before[k]
+        _capturing.recorded = None
 
 
 def add_launches(recorded: dict) -> None:
     """Count one replay of a graph whose capture recorded ``recorded``."""
-    for k, v in recorded.items():
-        launch_counts[k] += v
+    with _COUNT_LOCK:
+        for k, v in recorded.items():
+            launch_counts[k] += v
 
 
 def _bind(lib) -> None:
@@ -285,7 +304,7 @@ def bsr_spmv(block_vals, block_cols, block_nnz, x,
             block_nnz.data_ptr(), xq.data_ptr(), y.data_ptr(), r, k, c, b,
             q, SEMIRING_CODES[semiring], stream)
     LIBRARY.check(rc, "bsr_spmv")
-    launch_counts["bsr_spmv"] += 1
+    count_launch("bsr_spmv")
     return y[0] if single else y
 
 
@@ -303,7 +322,7 @@ def _spmv_compact(index: CompactIndex, x, semiring):
             *_rows_args(index), xq.data_ptr(), y.data_ptr(), r * b, c, b, q,
             SEMIRING_CODES[semiring], stream)
     LIBRARY_COMPACT.check(rc, "bsr_spmv_compact")
-    launch_counts["bsr_spmv_compact"] += 1
+    count_launch("bsr_spmv_compact")
     return y[0] if single else y
 
 
@@ -361,7 +380,7 @@ def bsr_spmv_fused(block_vals, block_cols, block_nnz, x, xg, valid,
             changed.data_ptr(), conv.data_ptr(), r, k, c, b, q,
             SEMIRING_CODES[semiring], RULE_CODES[apply_kind], stream)
     LIBRARY.check(rc, "bsr_spmv_fused")
-    launch_counts["bsr_spmv_fused"] += 1
+    count_launch("bsr_spmv_fused")
     return _fused_result(x_new, changed, conv, single)
 
 
@@ -412,5 +431,5 @@ def _fused_compact(index: CompactIndex, x, xg, valid, act_rows, damping,
             x_new.data_ptr(), changed.data_ptr(), conv.data_ptr(), r * b, c,
             b, q, SEMIRING_CODES[semiring], RULE_CODES[apply_kind], stream)
     LIBRARY_COMPACT.check(rc, "bsr_spmv_fused_compact")
-    launch_counts["bsr_spmv_fused_compact"] += 1
+    count_launch("bsr_spmv_fused_compact")
     return _fused_result(x_new, changed, conv, single)

@@ -2,9 +2,11 @@
 
 Same sites, specs and seeded RNG as the JAX package's ``resilience``
 module, so one fault plan fires at the same hooks in both packages.  In
-this package the engines fire ``engine.run`` and ``kernels.ops.
-select_kernel`` fires ``kernel.select``; the plan-store, distributed and
-scheduler sites are declared for the layers still to port.
+this package the engines fire ``engine.run``, ``kernels.ops.
+select_kernel`` fires ``kernel.select``, the plan store (``serve/
+graph.py``) ``planstore.disk_write`` and ``planstore.disk_read``, and the
+wave scheduler (``serve/sched.py``) ``sched.dispatch``; the distributed
+sites are declared for the multi-device engines still to port.
 
 The paper's architecture argument is that a self-timed array keeps
 making progress at each element's *actual* local behavior instead of

@@ -92,10 +92,13 @@ def _run(p, rule, fused, batched):
 
 def test_capture_launches_moves_counts_to_replays():
     tk.reset_launch_counts()
-    tk.launch_counts["bsr_spmv_compact"] = 3
+    for _ in range(3):
+        tk.count_launch("bsr_spmv_compact")
     with tk.capture_launches() as rec:
-        tk.launch_counts["bsr_spmv_compact"] += 64
-        tk.launch_counts["bsr_spmv_fused_compact"] += 2
+        for _ in range(64):
+            tk.count_launch("bsr_spmv_compact")
+        for _ in range(2):
+            tk.count_launch("bsr_spmv_fused_compact")
     assert tk.launch_counts["bsr_spmv_compact"] == 3   # nothing launched
     assert rec["bsr_spmv_compact"] == 64
     assert rec["bsr_spmv_fused_compact"] == 2
@@ -106,7 +109,7 @@ def test_capture_launches_moves_counts_to_replays():
     before = dict(tk.launch_counts)
     with pytest.raises(RuntimeError):
         with tk.capture_launches():
-            tk.launch_counts["bsr_spmv"] += 1
+            tk.count_launch("bsr_spmv")
             raise RuntimeError("capture failed")
     assert tk.launch_counts == before               # a failed capture
     tk.reset_launch_counts()
