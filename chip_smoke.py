@@ -56,6 +56,21 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      the full-scale CA graph and on ``fb``, held to the oracles (the
      triangle counts through the dense oracles' formulas as sparse
      products, themselves held to the dense oracles at n ≈ 900); the
+     distributed engines (phase ``distributed``, ``distributed_phase``):
+     sssp and bfs from 4 sources on the full-scale plans at the meshes
+     (devices, query axis) (1, 1), (4, 2), (8, 1), (8, 8), every slot on
+     the one card, bulk-synchronous and self-timed at k 2 and 4, then
+     pagerank_delta self-timed at (4, 2) k 2: values bit-equal to
+     ``run_sync_batched`` (pagerank_delta within 2·tol/(1-d) of
+     ``run_sync``), the sync flavor's per-query sweeps equal to
+     ``run_sync``'s, fewer exchanges for the self-timed one, one host
+     read a round, launches exact (a sweep a slot; k + 1 a slot a round),
+     each run's wall, exchanges and per-shard sweeps, the exchange alone
+     against its bound, device ms a round at (4, 2) split into SpMV,
+     copies and the rest; one session query on the default mesh with its
+     ``RunStats`` from the ``DistStats``, a ``dist.dispatch`` fault down
+     the ladder to sync, and one 64-wide ``GraphServer`` wave served by
+     one distributed run; then the
      compacted kernels at a full serving wave's width, Q 64 (phase
      ``time_q64``: call, device time, plain version, bound and, for
      plus_times, ``torch.sparse.mm``); then the serving layer
@@ -1074,6 +1089,337 @@ def platform_phase(proc, res):
          nale_speedup_over_gpu=gpu.time_s / nale.time_s,
          nale_perf_per_watt_over_cpu=nale.perf_per_watt / cpu.perf_per_watt,
          nale_perf_per_watt_over_gpu=nale.perf_per_watt / gpu.perf_per_watt)
+
+
+# -- the distributed engines on a mesh of slots on the one card --------------
+
+# (devices, query axis) of the JAX package's distributed tests; every slot
+# is the one card, so the halo exchange and the vote run as on N cards
+DIST_FACTORIZATIONS = ((1, 1), (4, 2), (8, 1), (8, 8))
+DIST_KS = (2, 4)
+DIST_SOURCES = 4             # np.linspace(0, n - 1, 4), as the JAX bench
+DIST_WAVE_SEED = 2
+
+
+def dist_round_split(events, rounds):
+    """Device ms a round from a profile, split into the compacted SpMV,
+    copies on the card (the halo exchange: the engines make no other
+    device-to-device copy in the loop) and the rest (the update rule, the
+    masks, the vote)."""
+    from torch.autograd import DeviceType
+    split = {"spmv": 0.0, "exchange_copies": 0.0, "rest": 0.0}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        key = e.key.lower()
+        part = ("spmv" if "bsr_spmv_compact" in key else
+                "exchange_copies" if ("copy" in key and "dtoh" not in key
+                                      and "htod" not in key)
+                or "dtod" in key else "rest")
+        split[part] += e.self_device_time_total / 1e3
+    if not any(split.values()):
+        return "not measured"
+    return {k: v / max(rounds, 1) for k, v in split.items()}
+
+
+def dist_run(what, fn, tk, launches_want):
+    """One distributed engine run: its wall (the card synchronized before
+    and after), DistStats, and its compacted launches, which must equal
+    ``launches_want(stats)`` with no launch of another kernel; one host
+    read a round."""
+    import torch
+    before = dict(tk.launch_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, ds = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: tk.launch_counts[k] - before[k] for k in before}
+    want = launches_want(ds)
+    if launches != {k: want if k == "bsr_spmv_compact" else 0
+                    for k in launches}:
+        raise AssertionError(f"{what}: launches {launches}, want {want} of "
+                             f"bsr_spmv_compact")
+    if ds.host_syncs != ds.halo_exchanges:
+        raise AssertionError(f"{what}: {ds.host_syncs} host reads in "
+                             f"{ds.halo_exchanges} rounds")
+    return x, ds, wall, launches["bsr_spmv_compact"]
+
+
+def filled_slots(p, mesh):
+    """Slots whose graph shard holds rows of the plan (the others launch
+    nothing)."""
+    d_g, d_q = mesh.shape["graph"], mesh.shape["query"]
+    rl = -(-p.r_pad // d_g)
+    return sum(1 for s in range(d_g) if s * rl < p.r_pad) * d_q
+
+
+def exchange_time(p, x0, mesh, own_halo):
+    """The halo exchange alone on this layout (CUDA events, median of
+    10): ms, the bytes it reads and writes, and their bound at 3.35 TB/s."""
+    from repro_torch.core import placement as PL
+    st = PL._Slots(p, PL.shard_batched_inputs(p, x0, mesh=mesh), own_halo)
+    nb = 2 * st.copy_bytes
+    return dict(exchange_ms=cuda_ms(st.exchange), exchange_bytes=nb,
+                exchange_bound_ms=nb / HBM_BYTES_PER_S * 1e3)
+
+
+def distributed_phase(proc, g, res):
+    """The bulk-synchronous and self-timed distributed engines on the
+    main path's full-scale CA plans, every mesh slot on the one card:
+    sssp and bfs from ``DIST_SOURCES`` sources at each of
+    ``DIST_FACTORIZATIONS``, sync and async at k ∈ ``DIST_KS``, then
+    pagerank_delta async at (4, 2) k 2; one session query on the default
+    mesh, one ``dist.dispatch`` fault, one 64-wide ``GraphServer`` wave.
+    Gates: values bit-equal to ``run_sync_batched`` (pagerank_delta
+    within 2·tol/(1-d) of ``run_sync``), sync per-query sweeps equal to
+    ``run_sync``'s of each source, exchanges (sync: one a sweep; async:
+    fewer), one host read a round, exact launches, ``RunStats`` from the
+    ``DistStats``.  Returns the compacted kernel's launches in these
+    runs."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch import resilience as rz
+    from repro_torch.core import async_dist as AD
+    from repro_torch.core import engine as E
+    from repro_torch.core import placement as PL
+    from repro_torch.kernels import bsr_spmv as tk
+
+    dev = PL._device(DEVICE)
+    t_phase = time.perf_counter()
+    sources = [int(v) for v in np.linspace(0, g.n - 1, DIST_SOURCES)]
+    sync = api.ExecutionPolicy(mode="sync", max_sweeps=100_000,
+                               degrade=False)
+    total = 0
+    for algo in ("sssp", "bfs"):
+        spec = api.QuerySpec(algo=algo, sources=tuple(sources), batched=True)
+        p, x0f, pad, apply_kind, _ = proc._relaxation_setup(spec, sync)
+        x0 = torch.stack([p.to_blocks(x0f(s), pad) for s in sources])
+        want, _ = E.run_sync_batched(p, x0, apply_kind, max_sweeps=100_000)
+        per_src = np.array([E.run_sync(p, x0[q], apply_kind,
+                                       max_sweeps=100_000)[1].sweeps
+                            for q in range(len(sources))])
+        for nd, qa in DIST_FACTORIZATIONS:
+            mesh = PL.make_graph_mesh(nd, qa, device=dev)
+            slots = filled_slots(p, mesh)
+            tag = f"{algo}/{nd}x{qa}"
+            x, ds, wall, n = dist_run(
+                f"{tag}/sync", lambda: PL.distributed_sync_run_batched(
+                    p, x0, apply_kind, max_sweeps=100_000, mesh=mesh),
+                tk, lambda ds: ds.sweeps * slots)
+            total += n
+            if not torch.equal(x, want):
+                raise AssertionError(f"{tag}/sync != run_sync_batched")
+            if not (np.array_equal(ds.query_sweeps, per_src) and
+                    ds.halo_exchanges == ds.sweeps and ds.converged):
+                raise AssertionError(f"{tag}/sync: sweeps "
+                                     f"{ds.query_sweeps} vs {per_src}, "
+                                     f"exchanges {ds.halo_exchanges}")
+            sync_ds = ds
+            runs = [("sync", 1, ds, wall, n)]
+            for k in DIST_KS:
+                x, ds, wall, n = dist_run(
+                    f"{tag}/async/k{k}",
+                    lambda k=k: AD.distributed_async_run_batched(
+                        p, x0, apply_kind, max_sweeps=100_000, mesh=mesh,
+                        local_sweeps=k),
+                    tk, lambda ds, k=k: ds.halo_exchanges * slots * (k + 1))
+                total += n
+                if not torch.equal(x, want) or not ds.converged:
+                    raise AssertionError(f"{tag}/async/k{k} != "
+                                         f"run_sync_batched")
+                if sync_ds.sweeps > 1 and \
+                        ds.halo_exchanges >= sync_ds.halo_exchanges:
+                    raise AssertionError(
+                        f"{tag}/async/k{k}: {ds.halo_exchanges} exchanges, "
+                        f"sync {sync_ds.halo_exchanges}")
+                runs.append(("async", k, ds, wall, n))
+            for flavor, k, ds, wall, n in runs:
+                emit(phase="distributed", algo=algo, mesh=[nd // qa, qa],
+                     flavor=flavor, k=k, wall_s=wall, sweeps=ds.sweeps,
+                     query_sweeps=ds.query_sweeps.tolist(),
+                     exchanges=ds.halo_exchanges, host_syncs=ds.host_syncs,
+                     shard_sweeps=None if ds.shard_sweeps is None
+                     else ds.shard_sweeps.tolist(), launches=n,
+                     halo_bytes_per_sweep=ds.halo_bytes_per_sweep,
+                     copy_bytes_per_exchange=ds.copy_bytes_per_exchange,
+                     ms_per_round=wall / max(ds.halo_exchanges, 1) * 1e3)
+            if algo == "sssp":
+                for own, flavor in ((False, "sync"), (True, "async")):
+                    emit(phase="distributed_exchange", mesh=[nd // qa, qa],
+                         flavor=flavor, q=len(sources),
+                         **exchange_time(p, x0, mesh, own))
+        if algo == "sssp":
+            # device ms a round, profiled after two unrecorded runs
+            mesh = PL.make_graph_mesh(4, 2, device=dev)
+            for flavor, fn in (
+                    ("sync", lambda: PL.distributed_sync_run_batched(
+                        p, x0, apply_kind, max_sweeps=100_000, mesh=mesh)),
+                    ("async/k2", lambda: AD.distributed_async_run_batched(
+                        p, x0, apply_kind, max_sweeps=100_000, mesh=mesh,
+                        local_sweeps=2))):
+                out = {}
+                wall, events = profiled(lambda: out.update(r=fn()))
+                rounds = out["r"][1].halo_exchanges
+                busy, top = device_busy(events)
+                emit(phase="distributed_profile", algo=algo, mesh=[2, 2],
+                     flavor=flavor, rounds=rounds, wall_s=wall,
+                     device_busy_s=busy if busy > 0 else "not measured",
+                     idle_share=1 - busy / wall if busy > 0
+                     else "not measured",
+                     device_ms_per_round=dist_round_split(events, rounds),
+                     top=top)
+
+    # pagerank_delta: an accumulation rule, tolerance-bounded
+    tol, damping = PR_TOL["ca"], 0.85
+    pol = sync.but(tol=tol, max_sweeps=500)
+    p, x0f, pad, apply_kind, _ = proc._relaxation_setup(
+        api.QuerySpec(algo="pagerank_delta"), pol)
+    x0 = p.to_blocks(x0f(None), pad)
+    want, st = E.run_sync(p, x0, apply_kind, tol=tol, max_sweeps=500)
+    mesh = PL.make_graph_mesh(4, 2, device=dev)
+    slots = filled_slots(p, mesh)
+    x, ds, wall, n = dist_run(
+        "pagerank_delta/2x2/async/k2",
+        lambda: AD.distributed_async_run_batched(
+            p, x0[None], apply_kind, tol=tol, max_sweeps=500, mesh=mesh,
+            local_sweeps=2), tk, lambda ds: ds.halo_exchanges * slots * 3)
+    total += n
+    err = float((x[0] - want).abs().max())
+    bound = 2 * tol / (1 - damping)
+    emit(phase="distributed", algo="pagerank_delta", mesh=[2, 2],
+         flavor="async", k=2, wall_s=wall, sweeps=ds.sweeps,
+         sync_sweeps=st.sweeps, exchanges=ds.halo_exchanges,
+         host_syncs=ds.host_syncs, shard_sweeps=ds.shard_sweeps.tolist(),
+         launches=n, max_abs_err=err, bound=bound)
+    if not ds.converged or err > bound:
+        raise AssertionError(f"pagerank_delta async: |Δ| {err} > {bound}")
+
+    # the session on its default mesh (every card), its counters from
+    # the DistStats, then a failed exchange round walked down the ladder
+    dist = api.ExecutionPolicy(mode="distributed", max_sweeps=100_000,
+                               degrade=False)
+    p = proc.prepare("min_plus")
+    r = run_dist_session(proc, dist, tk)
+    total += r.stats.sweeps
+    ds = r.extra["dist"]
+    np.testing.assert_array_equal(r.values, res["sssp/sync/ref"].values)
+    if r.stats != E.bsp_stats(p, ds.sweeps, ds.converged, "distributed"):
+        raise AssertionError(f"session stats {r.stats} != bsp_stats")
+    before = tk.launch_counts["bsr_spmv_compact"]
+    ra = proc.sssp(sources, policy=dist.but(dist_flavor="async",
+                                            local_sweeps=2))
+    da = ra.extra["dist"]
+    n = tk.launch_counts["bsr_spmv_compact"] - before
+    total += n
+    d_g, d_q = da.mesh_shape
+    if ra.stats != E.dist_run_stats(p, da) or ra.stats.halo_tiles != float(
+            p.group_ext_tiles.cpu().numpy().sum()) * da.halo_exchanges or \
+            n != da.halo_exchanges * 3 * filled_slots(
+                p, PL.make_graph_mesh(d_g * d_q, d_q, device=dev)):
+        raise AssertionError(f"session async: {ra.stats}, {n} launches")
+    with rz.inject(rz.FaultPlan([rz.FaultSpec("dist.dispatch", count=1)],
+                                seed=0)) as plan:
+        f = proc.run(api.QuerySpec(algo="sssp", sources=(0,),
+                                   policy=dist.but(degrade=True)))
+    np.testing.assert_array_equal(f.values, res["sssp/sync/ref"].values)
+    steps = f.extra.get("degraded", [])
+    if plan.stats()["dist.dispatch"]["injected"] != 1 or \
+            [s["from"].split("/")[0] for s in steps] != ["distributed"]:
+        raise AssertionError(f"dist.dispatch fallback: {steps}")
+    emit(phase="distributed_session", mesh=list(ds.mesh_shape),
+         sweeps=ds.sweeps, host_syncs=r.stats.host_syncs,
+         async_mesh=list(da.mesh_shape), async_exchanges=da.halo_exchanges,
+         fallback=steps[0]["from"] + " -> " + steps[0]["to"], ok=True)
+
+    total += distributed_wave(proc, g, dist, tk)
+    emit(phase="distributed_phase", seconds=time.perf_counter() - t_phase,
+         launches=total)
+    return total
+
+
+def run_dist_session(proc, pol, tk):
+    """One single-source sssp through ``GraphProcessor.run`` under
+    ``pol``: one launch a sweep on the default mesh of the one card, one
+    host read a sweep."""
+    from repro_torch import api
+    before = tk.launch_counts["bsr_spmv_compact"]
+    r = proc.run(api.QuerySpec(algo="sssp", sources=(0,), policy=pol))
+    slots = r.extra["dist"].mesh_shape[0]
+    if tk.launch_counts["bsr_spmv_compact"] - before != \
+            r.stats.sweeps * slots or r.stats.host_syncs != r.stats.sweeps:
+        raise AssertionError(f"session: launches or host reads off "
+                             f"({r.stats})")
+    return r
+
+
+def distributed_wave(proc, g, pol, tk):
+    """64 single-source sssp requests into a paused ``GraphServer`` over
+    the min_plus plan under ``pol``: started, it closes ONE wave, served
+    by one batched distributed run; each ticket equals a direct sync run
+    of the 64 sources and carries the wave's ``DistStats``.  Returns the
+    wave's launches."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    p = proc.prepare("min_plus")
+    svc = api.GraphService(max_plan_bytes=2 * p.nbytes, device=DEVICE)
+    sproc = svc.register("ca", g, b=16, num_clusters=64)
+    svc.store.put(g.fingerprint(), sproc.plan_key("min_plus"), p)
+    src = [int(v) for v in np.random.default_rng(DIST_WAVE_SEED).integers(
+        0, g.n, WAVE)]
+    server = api.GraphServer(service=svc, wave=api.WavePolicy(
+        max_wave=WAVE, max_wait_s=0.005, workers=1), autostart=False)
+    futs = [server.submit("ca", api.QuerySpec(algo="sssp", sources=(s,),
+                                              policy=pol)) for s in src]
+    before = tk.launch_counts["bsr_spmv_compact"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.start()
+    got = [f.result(SERVE_WAIT_S) for f in futs]
+    wall = time.perf_counter() - t0
+    server.close()
+    launched = tk.launch_counts["bsr_spmv_compact"] - before
+    st = svc.stats()
+    ds = got[0].extra["dist"]
+    direct = sproc.run(api.QuerySpec(algo="sssp", sources=tuple(src),
+                                     batched=True,
+                                     policy=pol.but(mode="sync")))
+    for q, r in enumerate(got):
+        np.testing.assert_array_equal(r.values, direct.values[q])
+        if r.extra["coalesced"] != WAVE or r.extra["dist"] is not ds:
+            raise AssertionError("distributed wave: a ticket not served "
+                                 "by the one wave")
+    if st["batched_runs"] != 1 or st["coalesced_queries"] != WAVE or \
+            launched != ds.halo_exchanges * ds.mesh_shape[0] or \
+            ds.host_syncs != ds.halo_exchanges:
+        raise AssertionError(f"distributed wave: {st}, {launched} "
+                             f"launches, {ds}")
+    emit(phase="distributed_wave", width=WAVE, wall_s=wall,
+         mesh=list(ds.mesh_shape), sweeps=ds.sweeps,
+         exchanges=ds.halo_exchanges, host_syncs=ds.host_syncs,
+         launches=launched, batched_runs=st["batched_runs"])
+    return launched
+
+
+def distributed_alone():
+    """The ``distributed`` phase alone, after ``setup()``: the full-scale
+    CA graph and the three plans it reads are built here (no main path
+    before it)."""
+    from repro_torch import api
+    from repro_torch.core import graph as G
+    g = G.make_paper_graph("ca", scale=CA_SCALE, seed=0)
+    proc = api.GraphProcessor(g, b=16, num_clusters=64, device=DEVICE)
+    for semiring, variant, normalize in (
+            ("min_plus", "base", None), ("min_plus", "unit", None),
+            ("plus_times", "base", "out_stochastic")):
+        proc.prepare(semiring, variant=variant,
+                     normalize=normalize).compact_index()
+    res = {"sssp/sync/ref": proc.sssp(0, policy=api.ExecutionPolicy(
+        mode="sync", max_sweeps=100_000))}
+    return distributed_phase(proc, g, res)
 
 
 # -- graph serving: GraphServer over the full-scale plans --------------------
@@ -2699,6 +3045,10 @@ def graph_phases():
     kernels, q64 = time_kernels(proc, g, errs, launches)
     platform_phase(proc, res)
     runners_phase(proc, g)
+    dist = distributed_phase(proc, g, res)
+    for entry in kernels:
+        entry["distributed_launches"] = (
+            dist if entry["name"] == "bsr_spmv_compact" else 0)
     graph_serving(proc, g, res, q64, kernels)
     del proc, g, p, res
     gc.collect()

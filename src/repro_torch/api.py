@@ -32,8 +32,10 @@ from the store's access log:
     dist = fut.result().values
 
 Every entry point runs on ``cuda`` unless ``device=`` names another
-device.  The distributed engines and the autotuner are not ported yet
-(ROADMAP queue 1).
+device.  ``ExecutionPolicy(mode="distributed")`` runs the engines over a
+(graph, query) mesh of devices (``core/placement.py``,
+``core/async_dist.py``): every card, or one slot on the session's
+device.  The autotuner is not ported yet (ROADMAP queue 1).
 """
 
 from .core.algorithms import (AlgorithmSpec, get_algorithm,  # noqa: F401

@@ -17,11 +17,13 @@ The session runs on ``cuda`` unless ``device=`` names another device (the
 tests pass ``device="cpu"``); without a card and without a device it
 raises.  MiniTri intersects its sorted neighbour table on the session's
 device; tricount and DFS run on the host in both packages (numpy, and a
-Python stack machine: DFS is serial by nature).  The two parts of the
-JAX package's session that are not ported yet — ``mode="distributed"``
-and ``KernelSpec(autotune=True)`` — are refused with a ValueError from
-``validate_spec``/``resolve_policy`` that names the ROADMAP item, so the
-degradation ladder never re-runs them as something else.
+Python stack machine: DFS is serial by nature).  ``mode="distributed"``
+runs the engines of ``core/placement.py`` and ``core/async_dist.py`` on
+the default mesh: every card when the session is on one, else one slot
+on the session's device.  The one part of the JAX package's session not
+ported yet, ``KernelSpec(autotune=True)``, is refused with a ValueError
+from ``validate_spec``/``resolve_policy`` that names the ROADMAP item, so
+the degradation ladder never re-runs it as something else.
 """
 
 from __future__ import annotations
@@ -33,7 +35,9 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from . import async_dist
 from . import engine as eng
+from . import placement
 from .algorithms import (AlgorithmSpec, get_algorithm,  # noqa: F401
                          register_algorithm, registered_algorithms)
 from .engine import Prepared, RunStats, resolve_device
@@ -44,8 +48,6 @@ MODES = ("sync", "async", "distributed")
 DIST_FLAVORS = ("sync", "async")
 
 # what the port refuses until a later slice brings it (ROADMAP queue 1)
-_UNPORTED_MODE = ("mode='distributed' is not ported yet (ROADMAP queue 1: "
-                  "multi-device engines); use mode='sync' or 'async'")
 _UNPORTED_AUTOTUNE = ("KernelSpec(autotune=True) is not ported yet (ROADMAP "
                       "queue 1: autotuner and roofline)")
 
@@ -56,8 +58,8 @@ class ExecutionPolicy:
     validation as the JAX package's ``ExecutionPolicy``.
 
     mode:  "sync" (BSP/Jacobi baseline) | "async" (the paper's self-timed
-           cluster-dataflow engine) | "distributed" (accepted here, as in
-           the JAX package; the session refuses it until ported).
+           cluster-dataflow engine) | "distributed" (the engines over a
+           (graph, query) mesh of devices, ``core/placement.py``).
     kernel:  a ``kernels.spec.KernelSpec``; None derives one from ``impl``.
     impl:  deprecated alias for ``kernel=KernelSpec(impl=...)``.  After
            construction ``impl`` always equals ``kernel.impl``.
@@ -222,8 +224,6 @@ class Result:
 
 
 def _check_ported(pol: ExecutionPolicy) -> None:
-    if pol.mode == "distributed":
-        raise ValueError(_UNPORTED_MODE)
     if pol.kernel.autotune:
         raise ValueError(_UNPORTED_AUTOTUNE)
 
@@ -426,9 +426,9 @@ class GraphProcessor:
                                      post)
         src = spec.sources[0] if spec.sources else None
         x0 = p.to_blocks(x0f(src), pad)
-        x, stats = self._dispatch(pol, p, x0, apply_kind, src)
+        x, stats, extra = self._dispatch(pol, p, x0, apply_kind, src)
         values = post(p.from_blocks(x))
-        extra = dict(algo=spec.algo,
+        extra = dict(extra, algo=spec.algo,
                      **({"src": src} if src is not None else {}))
         return Result(values, stats, p, extra, policy=pol, graph=self.g)
 
@@ -454,13 +454,30 @@ class GraphProcessor:
 
     def _dispatch(self, pol: ExecutionPolicy, p: Prepared, x0,
                   apply_kind: str, src: Optional[int]):
+        """One single-source engine run: (x, RunStats, extra)."""
         kern = pol.kernel
         kw = dict(apply_kind=apply_kind, damping=pol.damping, tol=pol.tol,
-                  max_sweeps=pol.max_sweeps, kernel=kern)
+                  max_sweeps=pol.max_sweeps)
         if pol.mode == "sync":
             ch0 = self._frontier(p, src) if kern.fuse_frontier else None
-            return eng.run_sync(p, x0, changed0=ch0, **kw)
-        return eng.run_async(p, x0, changed0=self._frontier(p, src), **kw)
+            x, stats = eng.run_sync(p, x0, kernel=kern, changed0=ch0, **kw)
+            return x, stats, {}
+        if pol.mode == "async":
+            x, stats = eng.run_async(p, x0, kernel=kern,
+                                     changed0=self._frontier(p, src), **kw)
+            return x, stats, {}
+        # distributed: the mesh engines (the ref kernel's registration,
+        # the compacted hand kernel on the card).  dist_flavor picks the
+        # exchange schedule: "sync" = bulk-synchronous (one exchange per
+        # sweep), "async" = self-timed k-local-sweep engine.
+        if pol.dist_flavor == "async":
+            x, dist = async_dist.distributed_async_run(
+                p, x0, local_sweeps=pol.local_sweeps, **kw)
+            return x, eng.dist_run_stats(p, dist), {"dist": dist}
+        x, dist = placement.distributed_sync_run(p, x0, **kw)
+        stats = eng.bsp_stats(p, dist.sweeps, dist.converged, "distributed",
+                              host_syncs=dist.host_syncs)
+        return x, stats, {"dist": dist}
 
     def _run_batched(self, spec: QuerySpec, pol: ExecutionPolicy,
                      p: Prepared, x0f, pad, apply_kind, post) -> Result:
@@ -468,20 +485,66 @@ class GraphProcessor:
         sources = list(spec.sources)
         if not sources:
             raise ValueError("batched query needs at least one source")
+        if pol.mode == "distributed" and pol.query_axis == 0:
+            return self._run_batched_dist_fallback(
+                spec, pol, p, x0f, pad, apply_kind, post, sources)
         x0 = torch.stack([p.to_blocks(x0f(s), pad) for s in sources])
+        extra = {"algo": spec.algo, "sources": sources}
         kw = dict(apply_kind=apply_kind, damping=pol.damping, tol=pol.tol,
-                  max_sweeps=pol.max_sweeps, kernel=kern)
-        if pol.mode == "async":
+                  max_sweeps=pol.max_sweeps)
+        if pol.mode == "distributed":
+            # one round loop over the 2-D mesh: rows over "graph", the
+            # query axis over "query".  Bit-identical to the per-source
+            # path; `sweeps` is the straggler's, work counters total the
+            # query axis.
+            if pol.dist_flavor == "async":
+                x, dist = async_dist.distributed_async_run_batched(
+                    p, x0, query_axis=pol.query_axis,
+                    local_sweeps=pol.local_sweeps, **kw)
+                stats = eng.dist_run_stats(p, dist)
+            else:
+                x, dist = placement.distributed_sync_run_batched(
+                    p, x0, query_axis=pol.query_axis, **kw)
+                stats = eng.bsp_stats(
+                    p, dist.sweeps, dist.converged, "distributed",
+                    work_sweeps=int(dist.query_sweeps.sum()),
+                    host_syncs=dist.host_syncs)
+            extra["dist"] = dist
+        elif pol.mode == "async":
             ch0 = torch.stack([self._frontier(p, s) for s in sources])
-            x, stats = eng.run_async_batched(p, x0, changed0=ch0, **kw)
+            x, stats = eng.run_async_batched(p, x0, kernel=kern,
+                                             changed0=ch0, **kw)
         else:
             ch0 = (torch.stack([self._frontier(p, s) for s in sources])
                    if kern.fuse_frontier else None)
-            x, stats = eng.run_sync_batched(p, x0, changed0=ch0, **kw)
+            x, stats = eng.run_sync_batched(p, x0, kernel=kern,
+                                            changed0=ch0, **kw)
         values = np.stack([post(p.from_blocks(x[q]))
                            for q in range(len(sources))])
-        extra = {"algo": spec.algo, "sources": sources}
         return Result(values, stats, p, extra, policy=pol, graph=self.g)
+
+    def _run_batched_dist_fallback(self, spec, pol, p, x0f, pad,
+                                   apply_kind, post, sources) -> Result:
+        """``query_axis=0`` escape hatch: the per-source loop through the
+        single-source distributed engine, kept for debugging mesh
+        factorizations against a known-serial reference — the default
+        batched path is one 2-D round loop."""
+        xs, sweeps, conv, syncs = [], [], [], 0
+        for s in sources:
+            x0q = p.to_blocks(x0f(s), pad)
+            xq, st, _ = self._dispatch(pol, p, x0q, apply_kind, s)
+            xs.append(xq)
+            sweeps.append(st.sweeps)
+            conv.append(st.converged)
+            syncs += st.host_syncs
+        stats = eng.bsp_stats(p, max(sweeps), all(conv),
+                              "distributed", work_sweeps=sum(sweeps),
+                              host_syncs=syncs)
+        values = np.stack([post(p.from_blocks(xq)) for xq in xs])
+        extra = {"algo": spec.algo, "sources": sources,
+                 "batched_fallback": "per-source sequential"}
+        return Result(values, stats, p, extra, policy=pol,
+                      graph=self.g)
 
     # -- the algorithm catalog (registry-backed convenience methods) -----
 

@@ -430,6 +430,27 @@ def bsp_stats(p: Prepared, sweeps: int, converged: bool, mode: str,
         total_groups=p.s, mode=mode, host_syncs=host_syncs)
 
 
+def dist_run_stats(p: Prepared, dist, mode: str = "distributed"
+                   ) -> RunStats:
+    """Work counters for a distributed run described by a
+    ``placement.DistStats``.  Compute work follows the sweep counts as in
+    :func:`bsp_stats`, but halo traffic is charged per *exchange*: the
+    self-timed flavor's point is ``halo_exchanges < sweeps`` when
+    ``local_sweeps > 1``, and the modeled boundary traffic must show it.
+    """
+    qs = dist.query_sweeps
+    w = int(qs.sum()) if qs is not None else int(dist.sweeps)
+    return RunStats(
+        sweeps=dist.sweeps, converged=dist.converged,
+        tile_work=p.tiles_total * w,
+        edge_work=p.edges_total * w,
+        crit_tiles=float(np.max(p.group_tiles.cpu().numpy())) * dist.sweeps,
+        active_group_sweeps=float(p.s * w),
+        halo_tiles=float(p.group_ext_tiles.cpu().numpy().sum())
+        * dist.halo_exchanges,
+        total_groups=p.s, mode=mode, host_syncs=dist.host_syncs)
+
+
 def _counter_stats(p: Prepared, sweeps: int, converged: bool, c: dict,
                    mode: str, host_syncs: int = 0,
                    capture_s: float = 0.0) -> RunStats:

@@ -2,11 +2,12 @@
 
 Same sites, specs and seeded RNG as the JAX package's ``resilience``
 module, so one fault plan fires at the same hooks in both packages.  In
-this package the engines fire ``engine.run``, ``kernels.ops.
+this package the local engines fire ``engine.run``, ``kernels.ops.
 select_kernel`` fires ``kernel.select``, the plan store (``serve/
-graph.py``) ``planstore.disk_write`` and ``planstore.disk_read``, and the
-wave scheduler (``serve/sched.py``) ``sched.dispatch``; the distributed
-sites are declared for the multi-device engines still to port.
+graph.py``) ``planstore.disk_write`` and ``planstore.disk_read``, the
+wave scheduler (``serve/sched.py``) ``sched.dispatch``, and the
+distributed engines (``core/placement.py``, ``core/async_dist.py``)
+``dist.straggler`` and ``dist.dispatch`` at their host entry.
 
 The paper's architecture argument is that a self-timed array keeps
 making progress at each element's *actual* local behavior instead of

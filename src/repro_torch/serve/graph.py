@@ -35,9 +35,10 @@ a card and without ``device=`` the constructors raise), the LRU decides
 which plans stay there, and an evicted plan leaves the card once no
 caller holds it any more (a ``Result`` holds its plan).  A plan loaded
 from the disk tier is uploaded to that device and builds its compacted
-SpMV index again at its first query.  ``mode="distributed"`` is refused
-at ``wave_key``/``submit`` until the multi-device engines are ported
-(ROADMAP queue 1).
+SpMV index again at its first query.  A wave under ``mode=
+"distributed"`` runs as one batched round loop over the session's mesh
+(``core/placement.py``), and each of its tickets carries the engine's
+``DistStats`` as in the JAX package.
 """
 
 from __future__ import annotations
@@ -562,8 +563,7 @@ class GraphService:
         """Validate a request and resolve its coalescing key.
 
         Raises ``KeyError`` for unregistered names and ``ValueError``/
-        ``TypeError`` for specs that can never execute (``mode=
-        "distributed"`` among them, until it is ported) — at *submit*
+        ``TypeError`` for specs that can never execute — at *submit*
         time, so a bad request cannot poison the batch it would have
         ridden in.  Returns ``(name, algo, resolved_policy)`` when the
         request can share a batched wave (single-source queries of an
@@ -687,8 +687,14 @@ class GraphService:
             for row, q in enumerate(wave):
                 extra = {"algo": algo, "src": sources[row],
                          "coalesced": len(wave)}
-                if "degraded" in batch.extra:
-                    extra["degraded"] = batch.extra["degraded"]
+                for k in ("dist", "batched_fallback", "degraded"):
+                    # distributed waves: surface the engine's mesh
+                    # factorization / per-query sweeps per ticket
+                    if k in batch.extra:
+                        extra[k] = batch.extra[k]
+                if "dist" in batch.extra:
+                    # which exchange schedule actually served the wave
+                    extra["dist_flavor"] = pol.dist_flavor
                 results[q.ticket] = Result(
                     np.asarray(batch.values[row]), batch.stats,
                     batch.prepared, extra, policy=pol,

@@ -5,8 +5,9 @@
 algorithms must equal the JAX package's values bit for bit; PageRank
 stays within atol=1e-6 of it.  Oracle tolerances are those of
 tests/test_algorithms.py.  Also: policy/spec validation equal to the JAX
-package's, the refusal of what is not ported yet, the device rule, and
-that the package imports neither jax nor the JAX package.
+package's, the refusal of what is not ported yet (the autotuner), the
+distributed specs once refused now running, the device rule, and that
+the package imports neither jax nor the JAX package.
 """
 
 import pathlib
@@ -278,14 +279,10 @@ def test_policy_but_and_hash_equal_reference():
 
 @pytest.mark.parametrize("make", [
     lambda: tapi.QuerySpec(algo="sssp", sources=(0,),
-                           policy=tapi.ExecutionPolicy(mode="distributed")),
-    lambda: tapi.QuerySpec(algo="sssp", sources=(0,),
-                           params={"mode": "distributed"}),
-    lambda: tapi.QuerySpec(algo="sssp", sources=(0,),
                            policy=tapi.ExecutionPolicy(
                                mode="async", kernel=tapi.KernelSpec(
                                    impl="pallas", autotune=True))),
-], ids=["distributed", "distributed-param", "autotune"])
+], ids=["autotune"])
 def test_unported_raise_value_error(make):
     _, tp = _procs("road")
     plan = trz.FaultPlan([])
@@ -294,6 +291,27 @@ def test_unported_raise_value_error(make):
     assert "engine.run" not in plan.stats()  # nothing was executed
     with pytest.raises(ValueError, match="ROADMAP"):
         tp.run(make()).platform_models()
+
+
+@pytest.mark.parametrize("make", [
+    lambda api: api.QuerySpec(algo="sssp", sources=(0,),
+                              policy=api.ExecutionPolicy(mode="distributed")),
+    lambda api: api.QuerySpec(algo="sssp", sources=(0,),
+                              params={"mode": "distributed"}),
+], ids=["distributed", "distributed-param"])
+def test_distributed_spec_runs(make):
+    """The specs the port refused before its distributed engines now run,
+    on the session's default mesh, and equal the JAX package's sync
+    result bit for bit."""
+    jp, tp = _procs("road")
+    res = tp.run(make(tapi))
+    want = jp.run(japi.QuerySpec(algo="sssp", sources=(0,),
+                                 policy=japi.ExecutionPolicy(mode="sync")))
+    np.testing.assert_array_equal(res.values, np.asarray(want.values))
+    assert res.stats.mode == "distributed"
+    assert res.extra["dist"].converged
+    assert res.stats.sweeps == want.stats.sweeps
+    assert res.platform_models()["nale"]
 
 
 def test_degradation_ladder_on_kernel_fault():

@@ -148,17 +148,29 @@ def test_runner_platform_models_raise_as_reference(algo):
     assert msgs[0] == msgs[1]
 
 
+# algorithms that other test files register at run time, in whichever
+# process runs them before this file (tests/test_algorithms.py in the JAX
+# package's registry, tests/test_torch_api.py in the port's): not part of
+# either package's catalog
+_TEST_REGISTERED = ("test_reliability", "torch_test_reliability")
+
+
+def _catalog(api):
+    return tuple(n for n in api.registered_algorithms()
+                 if n not in _TEST_REGISTERED)
+
+
 def test_runners_are_registered_and_accepted():
     """Every registered algorithm passes ``validate_spec`` in the port as
     in the JAX package: no runner is refused any more."""
-    for name in japi.registered_algorithms():
+    for name in _catalog(japi):
         a = japi.get_algorithm(name)
         srcs = (0,) if a.source_required else ()
         params = {k: 2.0 for k in a.required_params}
         for api in (jcore, tcore):
             api.validate_spec(api.QuerySpec(algo=name, sources=srcs,
                                             params=params))
-    assert tapi.registered_algorithms() == japi.registered_algorithms()
+    assert _catalog(tapi) == _catalog(japi)
 
 
 def test_dfs_needs_a_source():

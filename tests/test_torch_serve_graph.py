@@ -16,10 +16,11 @@ On the card (``-m cuda``, skipped here): an evicted plan's device bytes
 are freed, a plan loaded from disk rebuilds its compacted index on the
 card, and launch counts stay exact with two threads launching.
 
-Without counterpart: ``test_prepared_is_a_pytree`` (a JAX pytree) and
-``test_gather_coalesces_distributed_policy_into_2d_batched_engine``
-(the distributed engine is not ported: ``test_distributed_refused_at_
-submit`` pins its refusal instead).
+Without counterpart: ``test_prepared_is_a_pytree`` (a JAX pytree).  The
+counterpart of ``test_gather_coalesces_distributed_policy_into_2d_
+batched_engine`` is in tests/test_torch_placement.py, with the
+distributed engines; ``test_distributed_runs_at_submit`` here takes
+``mode="distributed"`` from the service, the spec and its params.
 """
 
 import gc
@@ -452,10 +453,10 @@ def test_submit_validates_spec_so_bad_requests_cannot_poison_a_batch(
 
 
 @pytest.mark.parametrize("where", ["service", "spec", "params"])
-def test_distributed_refused_at_submit(road, where):
-    """Counterpart of the reference's distributed-wave and distributed-
-    fallback tests: the port refuses ``mode="distributed"`` at submit,
-    naming the ROADMAP item, and queues nothing."""
+def test_distributed_runs_at_submit(road, where):
+    """``mode="distributed"`` from the service's policy, the spec's or its
+    params is taken at submit, queued, and served with the sync engine's
+    values; the ticket carries the distributed engine's stats."""
     dist = api.ExecutionPolicy(mode="distributed", max_sweeps=100_000)
     svc = service(policy=dist if where == "service" else None)
     svc.register("roads", road, b=16, num_clusters=8)
@@ -463,9 +464,14 @@ def test_distributed_refused_at_submit(road, where):
             "spec": api.QuerySpec(algo="sssp", sources=(0,), policy=dist),
             "params": api.QuerySpec(algo="sssp", sources=(0,),
                                     params={"mode": "distributed"})}[where]
-    with pytest.raises(ValueError, match="ROADMAP"):
-        svc.submit("roads", spec)
-    assert svc.stats()["pending"] == 0
+    t = svc.submit("roads", spec)
+    assert svc.stats()["pending"] == 1
+    res = svc.gather()[t]
+    assert not isinstance(res, Exception), res
+    assert res.stats.mode == "distributed" and res.extra["dist"].converged
+    want = proc_of(road).sssp(0, policy=api.ExecutionPolicy(
+        mode="sync", max_sweeps=100_000))
+    np.testing.assert_array_equal(res.values, want.values)
 
 
 def test_gather_isolates_runtime_failures_per_ticket(road, monkeypatch):

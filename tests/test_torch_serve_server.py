@@ -18,9 +18,9 @@ of two plans at once, bit-identical to serial runs, with exact launch
 counts; and the reason the capture runs in thread-local mode: in the
 default global mode the same upload breaks the capture.
 
-Without counterpart: ``test_distributed_fault_falls_back_to_single_
-device_sync`` (the distributed engine is not ported; tests/
-test_torch_serve_graph.py pins its refusal at submit).
+Also ``test_distributed_fault_falls_back_to_single_device_sync``: a
+failed exchange round of the distributed engine walks the ladder down
+to single-device sync, bit for bit, in the session and in the server.
 """
 
 import asyncio
@@ -547,6 +547,33 @@ def test_degraded_wave_surfaces_per_ticket(svc):
     for t, s in zip(tickets, (0, 3)):
         assert out[t].extra["degraded"][0]["to"] == "async/ref"
         np.testing.assert_array_equal(out[t].values, direct(svc, sssp(s)))
+    assert svc.stats()["degraded_runs"] == 1
+
+
+def test_distributed_fault_falls_back_to_single_device_sync(svc, road):
+    """A failed exchange round (``dist.dispatch``) walks the ladder to
+    single-device sync, bit for bit: in the session, and for a wave the
+    server closed, on every ticket."""
+    base = direct(svc, sssp(0))
+    proc = api.GraphProcessor(road, b=16, device=CPU)
+    dist = api.ExecutionPolicy(mode="distributed", max_sweeps=100_000)
+    with rz.inject(fplan(rz.FaultSpec("dist.dispatch"))):
+        r = proc.run(api.QuerySpec(algo="sssp", sources=(0,),
+                                   policy=dist))
+    np.testing.assert_array_equal(r.values, proc.sssp(0).values)
+    assert [s["from"].split("/")[0] for s in r.extra["degraded"]] \
+        == ["distributed"]
+    with paused(svc) as srv:
+        futs = [srv.submit("roads", api.QuerySpec(
+            algo="sssp", sources=(s,), policy=dist)) for s in (0, 3)]
+        with rz.inject(fplan(rz.FaultSpec("dist.dispatch", count=1))):
+            srv.start()
+            got = [f.result(timeout=WAIT) for f in futs]
+    np.testing.assert_array_equal(got[0].values, base)
+    np.testing.assert_array_equal(got[1].values, direct(svc, sssp(3)))
+    for res in got:
+        assert res.extra["degraded"][0]["from"] == "distributed/ref/sync"
+        assert res.extra["degraded"][0]["to"] == "sync/ref"
     assert svc.stats()["degraded_runs"] == 1
 
 
