@@ -4,7 +4,7 @@ path, LM serving (granite-3-2b at full width) and RWKV-6 serving
 (rwkv6-1.6b at full width and depth), every hand-written kernel against
 its plain version.
 
-    python3 chip_smoke.py            # everything (about 8 minutes)
+    python3 chip_smoke.py            # everything (about 10 minutes)
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
@@ -12,8 +12,9 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      TF32 off for matmuls and cuDNN;
   2. build the six CUDA libraries from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, started together; sm_90a) and print the build
-     time and ptxas's register report (the compacted SpMV library's
-     registers and spills as a line of their own); the two tensor-core
+     time, each library's own seconds and ptxas's register report (the
+     compacted SpMV library's registers and spills as a line of their
+     own, by kernel and launch bound); the two tensor-core
      libraries must show 0 spill bytes, no "wgmma ... serialized" warning
      and tensor-core instructions in their SASS (``cuobjdump -sass``):
      HGMMA for attention, HMMA for the chunked WKV6;
@@ -48,7 +49,23 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      the bound from the filled entries (bytes / 3.35 TB/s) and from the
      ELL image, the fused kernels over a dense and a sparse frontier,
      and, for plus_times, ``torch.sparse_csr_tensor`` @ x (call and
-     device time) as a yardstick; the paper's ISA compiler on the
+     device time) as a yardstick; then phase ``autotune``
+     (``autotune_phase``): every launch knob of the compacted kernels
+     (warps a block 2, 4, 8, 16 × rows a thread 1, 2, 4; fused: the warps)
+     bit for bit against the plain versions on the scale-0.02 CA plans
+     (four rings, b 16 and 32) and the Facebook stand-in's (hub rows),
+     ``KernelSpec(autotune=True)`` measured by the session on the
+     full-scale min_plus plans (each candidate's time, the winner, the
+     tuner's seconds; every candidate at or above the modelled bound, the
+     model within 1 % of the filled entries' bytes / 3.35 TB/s, each
+     candidate's block of 32 × warps threads read from the profiler's
+     trace, the winner's device time at most 1.05x the default knobs',
+     the winner bit for bit at Q 64), then sssp sync (unfused and fused),
+     sssp async fused and bfs async fused from 4 sources on the tuned
+     knobs, each equal to its untuned run in values and every counter
+     and held to the oracles, and a tuning read back by a restarted
+     ``GraphService`` (alone: ``python3 -c 'import chip_smoke as c;
+     c.setup(); c.autotune_alone()'``); the paper's ISA compiler on the
      full-scale min_plus plan (seconds, instructions) and the paper's
      analytic NALE/CPU/GPU models (``core/power.py``: modelled platforms,
      not the H100) for sssp async fused with sssp sync fused's stats; the
@@ -166,7 +183,12 @@ import warnings
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+# the H100 SXM's peaks (NVIDIA's data sheet), as the port's roofline
+# states them; the filled entries' bytes of an SpMV call, as its autotuner
+# counts them (one yardstick for both)
+from repro_torch.kernels.autotune import entry_bytes  # noqa: E402
+from repro_torch.launch.roofline import (  # noqa: E402
+    BF16_PEAK_FLOPS, HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS as F32_PEAK_FLOPS)
 SEMIRINGS = ("plus_times", "min_plus", "max_min", "min_select")
 RULES = ("relax", "pagerank", "pagerank_delta", "kcore", "identity")
 FRONTIERS = ("empty", "sparse", "dense")
@@ -385,27 +407,6 @@ def fused_bytes(p, q, act) -> int:
     b = p.b
     n_act = int(act.sum())
     return spmv_bytes(p, q, act) + n_act * b * (4 + 1) + p.r_pad + p.r_pad
-
-
-def entry_bytes(index, q, act=None, fused=False) -> int:
-    """The function's own bytes for one call (``bound_ms``): the filled
-    entries of the walked rows (8 B each: source and value), their row
-    pointers, the x values those entries read (each once), y written
-    once for the walked rows; fused, also xg and valid of those rows, the
-    act mask and the changed bits."""
-    import torch
-    b = index.b
-    row_ptr = index.row_ptr.long()
-    walked = (torch.ones(index.r * b, dtype=torch.bool, device=row_ptr.device)
-              if act is None else act.repeat_interleave(b))
-    on = walked.repeat_interleave(row_ptr.diff())     # per entry
-    src = index.pairs[int(row_ptr[0]):int(row_ptr[-1]), 0][on]
-    n_x = int(torch.unique(src).numel())
-    n, e = int(walked.sum()), src.numel()
-    nbytes = e * 8 + (n + 1) * 4 + q * n_x * 4 + q * n * 4
-    if fused:
-        nbytes += q * n * 4 + n + 2 * q * index.r
-    return nbytes
 
 
 def csr_yardstick(p, g, x):
@@ -1195,7 +1196,8 @@ def distributed_phase(proc, g, res):
     total = 0
     for algo in ("sssp", "bfs"):
         spec = api.QuerySpec(algo=algo, sources=tuple(sources), batched=True)
-        p, x0f, pad, apply_kind, _ = proc._relaxation_setup(spec, sync)
+        p, _, x0f, pad, apply_kind, _ = proc._relaxation_setup(spec,
+                                                                sync)
         x0 = torch.stack([p.to_blocks(x0f(s), pad) for s in sources])
         want, _ = E.run_sync_batched(p, x0, apply_kind, max_sweeps=100_000)
         per_src = np.array([E.run_sync(p, x0[q], apply_kind,
@@ -1275,7 +1277,7 @@ def distributed_phase(proc, g, res):
     # pagerank_delta: an accumulation rule, tolerance-bounded
     tol, damping = PR_TOL["ca"], 0.85
     pol = sync.but(tol=tol, max_sweeps=500)
-    p, x0f, pad, apply_kind, _ = proc._relaxation_setup(
+    p, _, x0f, pad, apply_kind, _ = proc._relaxation_setup(
         api.QuerySpec(algo="pagerank_delta"), pol)
     x0 = p.to_blocks(x0f(None), pad)
     want, st = E.run_sync(p, x0, apply_kind, tol=tol, max_sweeps=500)
@@ -1420,6 +1422,338 @@ def distributed_alone():
     res = {"sssp/sync/ref": proc.sssp(0, policy=api.ExecutionPolicy(
         mode="sync", max_sweeps=100_000))}
     return distributed_phase(proc, g, res)
+
+
+# -- the autotuner: the compacted kernels' launch knobs ----------------------
+
+TUNE_TRACE = ROOT / "build" / "autotune_trace.json"
+TUNE_CACHE = ROOT / "build" / "autotune_cache"
+TUNE_SLOWER = 1.05   # the winner's device ms over the default knobs', at most
+TUNE_MODEL_TOL = 0.01  # modeled_s against entry_bytes / HBM, relative
+# (name, the main path's untuned query it must equal, mode, fused)
+TUNE_QUERIES = (
+    ("sssp/sync/tuned", "sssp/sync/ref", "sync", False),
+    ("sssp/sync/fused/tuned", "sssp/sync/fused", "sync", True),
+    ("sssp/async/fused/tuned", "sssp/async/fused", "async", True),
+    ("bfs/async/fused/batch4/tuned", "bfs", "async", True))
+
+
+def tune_specs():
+    from repro_torch import api
+    return {False: api.KernelSpec(impl="pallas", autotune=True),
+            True: api.KernelSpec(impl="pallas", fuse_frontier=True,
+                                 autotune=True)}
+
+
+def knob_grid():
+    """Every candidate the tuner can measure: (block_size, rows_per_step,
+    fused), the unfused grid then the fused one."""
+    from repro_torch.kernels.autotune import BK_CANDIDATES, RS_CANDIDATES
+    return ([(bk, rs, False) for bk in BK_CANDIDATES for rs in RS_CANDIDATES]
+            + [(bk, 1, True) for bk in BK_CANDIDATES])
+
+
+def knob_call(p, index, x, act, sc, semiring, rule, bk, rs, fused):
+    """One launch of the compacted kernel at knobs (bk, rs)."""
+    from repro_torch.kernels import bsr_spmv as tk
+    if fused:
+        return lambda: tk.bsr_spmv_fused(
+            p.vals, p.cols, p.nnz, x, x, p.valid, act, *sc, semiring, rule,
+            index=index, block_size=bk)
+    return lambda: tk.bsr_spmv(p.vals, p.cols, p.nnz, x, semiring,
+                               index=index, block_size=bk, rows_per_step=rs)
+
+
+def candidates_vs_plain(p, semiring, errs, gen, what, q=2):
+    """Every candidate of ``knob_grid`` against the plain version, bit for
+    bit, on one plan: Q queries, a 25 % frontier for the fused kernel
+    (PageRank's rule on plus_times, relax on the others)."""
+    import torch
+    from repro_torch.kernels import ref as tref
+    index = p.compact_index()
+    rule = "pagerank" if semiring == "plus_times" else "relax"
+    x = random_x(gen, q, p.r_pad, p.b, semiring, rule, p.device)
+    act = (torch.rand((q, p.r_pad), generator=gen) < 0.25).to(p.device)
+    sc = [torch.tensor(v, dtype=torch.float32)
+          for v in (SCALARS["damping"], SCALARS["tol"], 1.0 / p.n)]
+    want = tref.bsr_spmv_compact_ref(index, x, semiring)
+    fwant = tref.bsr_spmv_fused_compact_ref(index, x, x, p.valid, act, *sc,
+                                            semiring, rule)
+    for bk, rs, fused in knob_grid():
+        got = knob_call(p, index, x, act, sc, semiring, rule, bk, rs,
+                        fused)()
+        tag = f"plain ({what}, {semiring}, b={p.b}, knobs {bk}/{rs})"
+        if fused:
+            for part, g_, w_ in zip(("x_new", "changed", "conv"), got,
+                                    fwant):
+                errs.exact("bsr_spmv_fused_compact", g_, w_,
+                           f"{tag}, {part}")
+        else:
+            errs.exact("bsr_spmv_compact", got, want, tag)
+
+
+def launch_blocks(calls):
+    """Each call's kernel launch as torch.profiler's trace records it:
+    (its name, block threads, registers a thread), in call order.  Two
+    rounds run under the profiler, which may miss launches right after it
+    starts; the last round is read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def round_():
+        for fn in calls:
+            fn()
+            torch.cuda.synchronize()
+    round_()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        round_()
+        round_()
+    TUNE_TRACE.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(TUNE_TRACE))
+    events = json.loads(TUNE_TRACE.read_text())["traceEvents"]
+    TUNE_TRACE.unlink()
+    kern = sorted((e for e in events if e.get("cat") == "kernel"
+                   and "_compact_kernel<" in e.get("name", "")),
+                  key=lambda e: e["ts"])
+    if len(kern) < len(calls):
+        raise AssertionError(f"the profiler recorded {len(kern)} compacted "
+                             f"launches of {2 * len(calls)}")
+    return [(e["name"], int(e["args"]["block"][0]),
+             e["args"].get("registers per thread"))
+            for e in kern[-len(calls):]]
+
+
+def tune_on_plan(proc, variant, fused, errs):
+    """The session's tuning of one full-scale min_plus plan, measured at
+    ``prepare(kernel=spec)`` (the tuner's wall); every candidate's time
+    against the model, the model against ``entry_bytes``, each
+    candidate's block threads from the profiler, the winner's device ms
+    against the default knobs' and the winner at Q 64 against the plain
+    version, bit for bit."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import ref as tref
+    spec = tune_specs()[fused]
+    calls0 = proc.cache_info()["autotune_calls"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = proc.prepare("min_plus", variant=variant, kernel=spec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if proc.cache_info()["autotune_calls"] != calls0 + 1:
+        raise AssertionError(f"prepare(kernel={spec}) did not measure one "
+                             f"tuning")
+    key = proc.plan_key("min_plus", variant=variant)
+    rec = proc._ensure_tuning(p, key, spec)     # the record just measured
+    index = p.compact_index()
+    x, act, *sc = at._calibration_inputs(p, proc.seed, "relax")
+    model_bytes = entry_bytes(index, 1, act if fused else None, fused=fused)
+    model_s = model_bytes / HBM_BYTES_PER_S
+    name = "bsr_spmv_fused_compact" if fused else "bsr_spmv_compact"
+    slow = [c for c in rec["candidates"] if c["measured_s"] < rec["modeled_s"]]
+    if slow or not rec["roofline_agrees"]:
+        raise AssertionError(f"{name}: measured below the roofline "
+                             f"{rec['modeled_s']} s: {slow}")
+    if abs(rec["modeled_s"] - model_s) > TUNE_MODEL_TOL * model_s:
+        raise AssertionError(f"{name}: modeled_s {rec['modeled_s']} against "
+                             f"entry_bytes / HBM {model_s}")
+    # the knobs are real: each candidate launches 32 x block_size threads
+    grid = [k for k in knob_grid() if k[2] == fused]
+    blocks = launch_blocks([knob_call(p, index, x, act, sc, "min_plus",
+                                      "relax", bk, rs, f)
+                            for bk, rs, f in grid])
+    for (bk, rs, _), (kname, threads, _) in zip(grid, blocks):
+        if KERNEL_KEYS[name] not in kname or threads != 32 * bk:
+            raise AssertionError(f"knobs {bk}/{rs}: launch {kname} with "
+                                 f"{threads} threads, want {32 * bk}")
+    # the tuner must not pick a loser: device ms, in turns default, winner
+    win = (rec["block_size"], rec["rows_per_step"])
+    dflt = (8, 1)
+    times = {win: [], dflt: []}
+    for knobs in (dflt, win, win, dflt):
+        times[knobs].append(kernel_device_ms(knob_call(
+            p, index, x, act, sc, "min_plus", "relax", *knobs, fused),
+            KERNEL_KEYS[name]))
+    if any(isinstance(t, str) for ts in times.values() for t in ts):
+        raise AssertionError(f"{name}: the profiler recorded no device time")
+    win_ms, dflt_ms = (statistics.mean(times[k]) for k in (win, dflt))
+    if win_ms > TUNE_SLOWER * dflt_ms:
+        raise AssertionError(f"{name}: the winner {win} takes {win_ms} ms "
+                             f"of device time, the default knobs {dflt_ms}")
+    # the winner at a serving wave's width, bit for bit
+    x64 = torch.rand((WAVE, p.r_pad, p.b), generator=torch.Generator()
+                     .manual_seed(65)).to(p.device)
+    act64 = torch.ones((WAVE, p.r_pad), dtype=torch.bool, device=p.device)
+    got = knob_call(p, index, x64, act64, sc, "min_plus", "relax", *win,
+                    fused)()
+    if fused:
+        want = tref.bsr_spmv_fused_compact_ref(index, x64, x64, p.valid,
+                                               act64, *sc, "min_plus",
+                                               "relax")
+        for part, g_, w_ in zip(("x_new", "changed", "conv"), got, want):
+            errs.exact(name, g_, w_, f"plain at Q {WAVE} ({win}, {part})")
+    else:
+        errs.exact(name, got, tref.bsr_spmv_compact_ref(index, x64,
+                                                        "min_plus"),
+                   f"plain at Q {WAVE} ({win})")
+    del x64, act64, got
+    out = dict(
+        kernel=name, plan=["min_plus", variant],
+        spec=dataclasses.asdict(spec), tuner_wall_s=wall,
+        block_size=win[0], rows_per_step=win[1],
+        measured_ms=rec["measured_s"] * 1e3,
+        modeled_ms=rec["modeled_s"] * 1e3, model_bytes=model_bytes,
+        roofline_agrees=rec["roofline_agrees"],
+        candidates=[[c["block_size"], c["rows_per_step"],
+                     c["measured_s"] * 1e3] for c in rec["candidates"]],
+        launch_blocks=[[bk, rs, threads, regs] for (bk, rs, _),
+                       (_, threads, regs) in zip(grid, blocks)],
+        tuned_device_ms=win_ms, default_device_ms=dflt_ms,
+        device_ms_runs={"tuned": times[win], "default": times[dflt]})
+    emit(phase="autotune", **out)
+    return out
+
+
+def tuning_survives_restart(g02):
+    """A GraphService over a fresh cache_dir measures one tuning; a second
+    service on the same directory reads it back (autotune_calls 0) and
+    answers with the same values."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    from repro_torch import api
+    shutil.rmtree(TUNE_CACHE, ignore_errors=True)
+    pol = api.ExecutionPolicy(mode="sync", degrade=False,
+                              kernel=tune_specs()[True])
+    got, recs = [], []
+    for _ in range(2):
+        svc = api.GraphService(cache_dir=str(TUNE_CACHE), device=DEVICE)
+        proc = svc.register("ca", g02, b=16, num_clusters=64)
+        got.append((proc.sssp(0, policy=pol),
+                    proc.cache_info()["autotune_calls"]))
+        tkey = dataclasses.replace(proc.plan_key("min_plus"),
+                                   kernel=pol.kernel)
+        recs.append(svc.store.get_tuning(g02.fingerprint(), tkey))
+        del svc, proc
+    shutil.rmtree(TUNE_CACHE, ignore_errors=True)
+    (r1, c1), (r2, c2) = got
+    if (c1, c2) != (1, 0) or recs[0] is None or recs[0] != recs[1]:
+        raise AssertionError(f"restart: autotune_calls {c1}, {c2}; records "
+                             f"{recs}")
+    np.testing.assert_array_equal(r2.values, r1.values)
+    check_oracle("sssp", g02, r2.values, 0)
+    emit(phase="autotune_restart", autotune_calls=[c1, c2],
+         block_size=recs[1]["block_size"], ok=True)
+
+
+def autotune_phase(proc, g, res, kernels):
+    """Phase ``autotune``: the compacted kernels' launch knobs.  Every
+    candidate bit for bit against the plain version at the scale-0.02 CA
+    plans (four rings, b 16 and 32) and the Facebook stand-in's (b 32, hub
+    rows); the session's tuning of the full-scale min_plus plans
+    (``tune_on_plan``: unfused and fused on the base plan, fused on the
+    unit plan that bfs reads); sssp sync (unfused and fused), sssp async
+    fused and bfs async fused from 4 sources with ``autotune=True``, each
+    equal to the main path's untuned run in values, sweeps and every
+    ``RunStats`` counter and held to the oracles; a tuning read back by a
+    restarted service.  Adds the winners to the kernels line."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core import engine as E
+    from repro_torch.core import graph as G
+    from repro_torch.kernels import bsr_spmv as tk
+    t_phase = time.perf_counter()
+    errs = Errors()
+    gen = torch.Generator().manual_seed(22)
+    g02 = G.make_paper_graph("ca", scale=SMALL_SCALE, seed=0)
+    gfb = G.make_paper_graph("fb", scale=FB_SCALE, seed=0)
+    long_rows = 0
+    for graph, what, blocks in ((g02, "ca-0.02", (16, 32)),
+                                (gfb, "fb", (32,))):
+        for b in blocks:
+            for semiring in SEMIRINGS:
+                p = E.prepare(graph, semiring, b=b, num_clusters=64,
+                              device=DEVICE)
+                candidates_vs_plain(p, semiring, errs, gen, what)
+                if what == "fb":
+                    long_rows = max(long_rows,
+                                    len(p.compact_index().long_host))
+                del p
+    if long_rows == 0:
+        raise AssertionError("the fb plans have no long rows")
+    emit(phase="autotune_vs_plain", ok=True, candidates=len(knob_grid()),
+         fb_long_rows=long_rows, max_abs_err=errs.max)
+
+    tuned = {("base", False): tune_on_plan(proc, "base", False, errs),
+             ("base", True): tune_on_plan(proc, "base", True, errs),
+             ("unit", True): tune_on_plan(proc, "unit", True, errs)}
+    calls = proc.cache_info()["autotune_calls"]
+    specs = tune_specs()
+    bfs_src = [0, g.n // 3, 2 * g.n // 3, g.n - 1]
+    for name, base, mode, fused in TUNE_QUERIES:
+        pol = api.ExecutionPolicy(mode=mode, degrade=False,
+                                  kernel=specs[fused], max_sweeps=100_000)
+        if name.startswith("bfs"):
+            r = run_query(name, lambda: proc.bfs(bfs_src, policy=pol), tk)
+        else:
+            r = run_query(name, lambda: proc.sssp(0, policy=pol), tk)
+        want = res[base]
+        np.testing.assert_array_equal(r.values, want.values)
+        st, sw = (dict(dataclasses.asdict(x.stats), capture_s=0)
+                  for x in (r, want))
+        if st != sw:
+            raise AssertionError(f"{name}: stats {st} != untuned {sw}")
+        if name.startswith("bfs"):
+            for q, s in enumerate(bfs_src):
+                check_oracle("bfs", g, r.values[q], s)
+        else:
+            check_oracle("sssp", g, r.values, 0)
+    if proc.cache_info()["autotune_calls"] != calls:
+        raise AssertionError("a tuned query measured its tuning again")
+    tuning_survives_restart(g02)
+    emit(phase="autotune_e2e", ok=True, queries=len(TUNE_QUERIES),
+         autotune_calls=calls, tunings=proc.cache_info()["tunings"],
+         max_abs_err=errs.max, seconds=time.perf_counter() - t_phase)
+    for entry in kernels:
+        rec = tuned.get(("base", entry["name"] == "bsr_spmv_fused_compact"))
+        if entry["name"] in ("bsr_spmv_compact", "bsr_spmv_fused_compact"):
+            entry.update(tuned_knobs=[rec["block_size"],
+                                      rec["rows_per_step"]],
+                         tuned_device_ms=rec["tuned_device_ms"],
+                         default_device_ms=rec["default_device_ms"],
+                         tuned_on="min_plus base plan, calibration inputs")
+    torch.cuda.empty_cache()
+    return tuned
+
+
+def autotune_alone():
+    """The ``autotune`` phase alone, after ``setup()``: the full-scale CA
+    graph, its min_plus base and unit plans and the untuned queries the
+    phase compares against are built here (no main path before it)."""
+    from repro_torch import api
+    from repro_torch.core import graph as G
+    from repro_torch.kernels import bsr_spmv as tk
+    g = G.make_paper_graph("ca", scale=CA_SCALE, seed=0)
+    proc = api.GraphProcessor(g, b=16, num_clusters=64, device=DEVICE)
+    for variant in ("base", "unit"):
+        proc.prepare("min_plus", variant=variant).compact_index()
+    fused = api.KernelSpec(impl="pallas", fuse_frontier=True)
+    res = {}
+    for name, mode, kern in (("sssp/sync/ref", "sync", None),
+                             ("sssp/sync/fused", "sync", fused),
+                             ("sssp/async/fused", "async", fused)):
+        pol = api.ExecutionPolicy(mode=mode, kernel=kern, degrade=False,
+                                  max_sweeps=100_000)
+        res[name] = run_query(name, lambda: proc.sssp(0, policy=pol), tk)
+    pol = api.ExecutionPolicy(mode="async", kernel=fused, degrade=False,
+                              max_sweeps=100_000)
+    res["bfs"] = run_query("bfs/async/fused/batch4", lambda: proc.bfs(
+        [0, g.n // 3, 2 * g.n // 3, g.n - 1], policy=pol), tk)
+    return autotune_phase(proc, g, res, [])
 
 
 # -- graph serving: GraphServer over the full-scale plans --------------------
@@ -1944,7 +2278,6 @@ LOGIT_REL_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 # a flipped greedy token is accepted when its logit and the static path's
 # token's logit differ by at most this (two bf16 ulps at |logit| < 8)
 FLIP_TOL = 0.125
-BF16_PEAK_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores, data sheet
 DECODE_PROFILE_STEPS = 8
 
 
@@ -2418,7 +2751,6 @@ def time_attention(gen, errs_max, launches):
 # -- RWKV-6 serving: the WKV6 kernel and rwkv6-1.6b -------------------------
 
 RWKV_ARCH = "rwkv6-1.6b"
-F32_PEAK_FLOPS = 67e12      # H100 SXM f32 on the CUDA cores, data sheet
 WKV_HEADS, WKV_HS = 32, 64  # rwkv6-1.6b: d_model 2048 / head size 64
 # kernel vs plain.  y: |Δ| <= tol·(|plain| + rms(plain)) elementwise (the
 # rms term: y sums hs products, and an output near 0 keeps its terms'
@@ -2972,11 +3304,18 @@ def build_all():
     from repro_torch.kernels import wkv6 as twkv
     libraries = [tk.LIBRARY, tk.LIBRARY_COMPACT, *fa.LIBRARIES.values(),
                  twkv.LIBRARY, twkv.LIBRARY_CHUNKED]
+
+    def timed(lib):
+        t1 = time.perf_counter()
+        return lib.build(), time.perf_counter() - t1
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as ex:
-        paths = list(ex.map(lambda lib: lib.build(), libraries))
+        built = list(ex.map(timed, libraries))
+    paths = [path for path, _ in built]
     emit(phase="build", seconds=time.perf_counter() - t0,
-         libraries=[p.name for p in paths])
+         libraries=[p.name for p in paths],
+         library_seconds={lib.name: sec for lib, (_, sec) in
+                          zip(libraries, built)})
     for p in paths:
         print(p.with_suffix(".log").read_text(), flush=True)
     log = tk.LIBRARY_COMPACT.path().with_suffix(".log").read_text()
@@ -2984,9 +3323,73 @@ def build_all():
          registers=[int(n) for n in re.findall(r"Used (\d+) registers",
                                                log)],
          spill_bytes=[int(a) + int(b) for a, b in re.findall(
-             r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)])
+             r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)],
+         **compact_ptxas(log))
     tensor_core_report(fa.LIBRARIES["tensor_cores"].path(), "HGMMA")
     tensor_core_report(twkv.LIBRARY_CHUNKED.path(), "HMMA")
+
+
+def compact_ptxas(log) -> dict:
+    """The compacted SpMV kernels' registers and spill bytes from a ptxas
+    log, by kernel, B, ring code, launch bound and (unfused) whether a
+    thread walks several rows (the bound and the flag are absent in a
+    source built before the kernels took knobs: one bound of 256, one
+    row): ``default_bound`` holds the kernels a launch of the default
+    knobs runs (8 warps, one row a thread), ``by_bound`` the most
+    registers and the spill bytes per bound, ``spills`` every kernel
+    that spills."""
+    import re
+    kernels, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(bsr_spmv(?:_fused)?_compact_kernel)ILi(\d+)ELi"
+                          r"(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?E", m.group(1))
+            name = None if k is None else (
+                f"{k.group(1)}<{k.group(2)},{k.group(3)},"
+                f"{k.group(4) or 256}"
+                f"{'' if k.group(5) is None else ',' + k.group(5)}>")
+            if name:
+                kernels[name] = {"registers": None, "spill_bytes": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            kernels[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernels[name]["registers"] = int(m.group(1))
+    by_bound = {}
+    for k, v in kernels.items():
+        bound = k.split(",")[2].rstrip(">")
+        agg = by_bound.setdefault(bound, {"max_registers": 0,
+                                          "spill_bytes": 0, "kernels": 0})
+        agg["max_registers"] = max(agg["max_registers"], v["registers"] or 0)
+        agg["spill_bytes"] += v["spill_bytes"]
+        agg["kernels"] += 1
+    return {"default_bound": {k: v["registers"] for k, v in kernels.items()
+                              if k.endswith(",256>") or k.endswith(",256,0>")},
+            "by_bound": by_bound,
+            "spills": {k: v["spill_bytes"] for k, v in kernels.items()
+                       if v["spill_bytes"]}}
+
+
+def nvcc_report(source) -> dict:
+    """nvcc's seconds for one SpMV source alone, with the compacted
+    library's flags, and ``compact_ptxas`` of its log: the build of two
+    versions of ``csrc/bsr_spmv_compact.cu`` compared in one call."""
+    from repro_torch.kernels import bsr_spmv as tk
+    from repro_torch.kernels.cuda_lib import nvcc
+    out = ROOT / "build" / "nvcc_report.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc(), *tk.NVCC_FLAGS, "-o", str(out),
+                           str(source)], capture_output=True, text=True,
+                          check=True)
+    seconds = time.perf_counter() - t0
+    out.unlink()
+    return dict(source=str(source), seconds=seconds,
+                **compact_ptxas(proc.stdout + proc.stderr))
 
 
 def tensor_core_report(lib, instruction):
@@ -3043,6 +3446,7 @@ def graph_phases():
 
     proc, g, launches, res = main_path(errs, gen)
     kernels, q64 = time_kernels(proc, g, errs, launches)
+    autotune_phase(proc, g, res, kernels)
     platform_phase(proc, res)
     runners_phase(proc, g)
     dist = distributed_phase(proc, g, res)

@@ -35,7 +35,10 @@ Every entry point runs on ``cuda`` unless ``device=`` names another
 device.  ``ExecutionPolicy(mode="distributed")`` runs the engines over a
 (graph, query) mesh of devices (``core/placement.py``,
 ``core/async_dist.py``): every card, or one slot on the session's
-device.  The autotuner is not ported yet (ROADMAP queue 1).
+device.  ``KernelSpec(impl="pallas", autotune=True)`` measures the SpMV
+kernels' launch knobs on each plan once (``kernels/autotune.py``) and
+keeps the record beside the plan, in the store's sidecar when there is
+one.
 """
 
 from .core.algorithms import (AlgorithmSpec, get_algorithm,  # noqa: F401

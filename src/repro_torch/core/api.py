@@ -20,15 +20,17 @@ device; tricount and DFS run on the host in both packages (numpy, and a
 Python stack machine: DFS is serial by nature).  ``mode="distributed"``
 runs the engines of ``core/placement.py`` and ``core/async_dist.py`` on
 the default mesh: every card when the session is on one, else one slot
-on the session's device.  The one part of the JAX package's session not
-ported yet, ``KernelSpec(autotune=True)``, is refused with a ValueError
-from ``validate_spec``/``resolve_policy`` that names the ROADMAP item, so
-the degradation ladder never re-runs it as something else.
+on the session's device.  ``KernelSpec(impl="pallas", autotune=True)``
+measures the compacted kernels' launch knobs on the plan
+(``kernels/autotune.py``) once per (plan, spec), caches the record beside
+the plan (in the ``PlanStore`` when the session has one, so it survives a
+restart) and runs every query of that spec on the winner.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import warnings
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
@@ -46,10 +48,6 @@ from ..kernels.spec import KernelSpec, as_kernel_spec
 
 MODES = ("sync", "async", "distributed")
 DIST_FLAVORS = ("sync", "async")
-
-# what the port refuses until a later slice brings it (ROADMAP queue 1)
-_UNPORTED_AUTOTUNE = ("KernelSpec(autotune=True) is not ported yet (ROADMAP "
-                      "queue 1: autotuner and roofline)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +160,8 @@ class PlanKey:
     num_clusters: Optional[int]
     clustered: bool
     seed: int = 0         # clustering seed (part of plan identity)
+    # Prepared images are kernel-agnostic and keyed with kernel=None;
+    # tuning records ride the same store under replace(key, kernel=spec)
     kernel: Optional[KernelSpec] = None
 
 
@@ -223,14 +223,8 @@ class Result:
         return rep
 
 
-def _check_ported(pol: ExecutionPolicy) -> None:
-    if pol.kernel.autotune:
-        raise ValueError(_UNPORTED_AUTOTUNE)
-
-
 def validate_spec(spec: QuerySpec) -> None:
-    """Raise on specs that can never execute (including what this
-    package has not ported yet)."""
+    """Raise on specs that can never execute."""
     a = get_algorithm(spec.algo)
     if a.source_required and not spec.sources:
         raise ValueError(
@@ -247,8 +241,6 @@ def validate_spec(spec: QuerySpec) -> None:
             f"{len(spec.sources)} sources with batched=False would "
             "silently run only the first; set batched=True (or submit "
             "one spec per source)")
-    if spec.policy is not None:
-        _check_ported(spec.policy)
 
 
 def _policy_desc(pol: ExecutionPolicy) -> str:
@@ -304,8 +296,13 @@ class GraphProcessor:
         self.policy = policy or ExecutionPolicy()
         self.store = store
         self._plans: Dict[PlanKey, Prepared] = {}
+        self._tunings: Dict[PlanKey, dict] = {}  # session-local fallback
         self._variants: Dict[str, Graph] = {"base": g}
         self._prepare_calls = 0
+        self._autotune_calls = 0
+        # one tuning measured at a time: a key's record is looked up again
+        # under the lock, so concurrent first queries measure it once
+        self._tuning_lock = threading.Lock()
 
     # -- compile-time pipeline (cached) ---------------------------------
 
@@ -334,13 +331,15 @@ class GraphProcessor:
                        self.num_clusters, self.clustered, self.seed)
 
     def prepare(self, semiring: str, variant: str = "base",
-                pull: bool = True, normalize: Optional[str] = None
-                ) -> Prepared:
+                pull: bool = True, normalize: Optional[str] = None,
+                kernel: Optional[KernelSpec] = None) -> Prepared:
         """Fetch (or build and cache) the Prepared image for a plan.
 
         With an injected store the lookup (and the LRU and byte
         accounting) is delegated; without one, plans live in a
-        session-local dict."""
+        session-local dict.  Passing a ``kernel`` with ``autotune=True``
+        also runs (or fetches) the measured tuning sweep now, so the
+        first query pays no calibration latency."""
         key = self.plan_key(semiring, variant, pull, normalize)
         if self.store is not None:
             p = self.store.get(self.g.fingerprint(), key)
@@ -348,12 +347,14 @@ class GraphProcessor:
                 self._prepare_calls += 1
                 p = self._build(semiring, variant, pull, normalize)
                 self.store.put(self.g.fingerprint(), key, p)
-            return p
-        p = self._plans.get(key)
-        if p is None:
-            self._prepare_calls += 1
-            p = self._build(semiring, variant, pull, normalize)
-            self._plans[key] = p
+        else:
+            p = self._plans.get(key)
+            if p is None:
+                self._prepare_calls += 1
+                p = self._build(semiring, variant, pull, normalize)
+                self._plans[key] = p
+        if kernel is not None and kernel.autotune:
+            self._ensure_tuning(p, key, kernel)
         return p
 
     def _build(self, semiring: str, variant: str, pull: bool,
@@ -366,10 +367,53 @@ class GraphProcessor:
     def cache_info(self) -> dict:
         info = {"plans": len(self._plans),
                 "prepare_calls": self._prepare_calls,
+                "autotune_calls": self._autotune_calls,
+                "tunings": len(self._tunings),
                 "keys": list(self._plans)}
         if self.store is not None:
             info["store"] = self.store.stats()
         return info
+
+    # -- measured kernel tunings (cached beside the plan) ----------------
+
+    def _ensure_tuning(self, p: Prepared, key: PlanKey,
+                       spec: KernelSpec) -> dict:
+        """Fetch-or-measure the tuning record for (plan, spec).  Records
+        ride the plan store's ``(fingerprint, PlanKey)`` scheme under
+        ``replace(base_key, kernel=spec)`` so warm restarts reuse them;
+        without a store they live for the session.  Measured once per
+        key: the lookup is repeated under the store's (or the session's)
+        tuning lock before measuring."""
+        from ..kernels import autotune as at
+        tkey = dataclasses.replace(key, kernel=spec)
+        store = self.store
+        fp = None if store is None else self.g.fingerprint()
+        lock = self._tuning_lock if store is None else store.tuning_lock
+
+        def get():
+            return (self._tunings.get(tkey) if store is None
+                    else store.get_tuning(fp, tkey))
+
+        rec = get()
+        if rec is None:
+            with lock:
+                rec = get()
+                if rec is None:
+                    self._autotune_calls += 1
+                    rec = at.autotune_spmv(p, spec, seed=self.seed)
+                    if store is None:
+                        self._tunings[tkey] = rec
+                    else:
+                        store.put_tuning(fp, tkey, rec)
+        return rec
+
+    def _kernel_for_run(self, p: Prepared, key: PlanKey,
+                        spec: KernelSpec) -> KernelSpec:
+        """The concrete spec a query executes: autotuned knobs filled in
+        from the cached (or freshly measured) tuning record."""
+        if spec.impl != "pallas" or not spec.autotune:
+            return spec
+        return spec.concrete(self._ensure_tuning(p, key, spec))
 
     # -- unified run entry point ----------------------------------------
 
@@ -377,14 +421,13 @@ class GraphProcessor:
         """The effective policy for a spec: explicit policy (or session
         default merged with the algorithm's registered defaults), then
         ``params`` overrides translated through the algorithm's
-        ``param_map``.  Refuses what is not ported yet."""
+        ``param_map``."""
         a = get_algorithm(spec.algo)
         pol = spec.policy or self.policy.but(**dict(a.default_policy))
         if spec.params:
             pm = dict(a.param_map)
             pol = pol.but(**{pm.get(k, k): v
                              for k, v in dict(spec.params).items()})
-        _check_ported(pol)
         return pol
 
     def run(self, spec: QuerySpec) -> Result:
@@ -420,27 +463,33 @@ class GraphProcessor:
 
     def _execute(self, spec: QuerySpec, pol: ExecutionPolicy) -> Result:
         """One engine attempt at (spec, pol)."""
-        p, x0f, pad, apply_kind, post = self._relaxation_setup(spec, pol)
+        p, key, x0f, pad, apply_kind, post = self._relaxation_setup(
+            spec, pol)
+        kern = self._kernel_for_run(p, key, pol.kernel)
         if spec.batched:
             return self._run_batched(spec, pol, p, x0f, pad, apply_kind,
-                                     post)
+                                     post, kern)
         src = spec.sources[0] if spec.sources else None
         x0 = p.to_blocks(x0f(src), pad)
-        x, stats, extra = self._dispatch(pol, p, x0, apply_kind, src)
+        x, stats, extra = self._dispatch(pol, p, x0, apply_kind, src, kern)
         values = post(p.from_blocks(x))
         extra = dict(extra, algo=spec.algo,
                      **({"src": src} if src is not None else {}))
         return Result(values, stats, p, extra, policy=pol, graph=self.g)
 
     def _relaxation_setup(self, spec: QuerySpec, pol: ExecutionPolicy):
-        """Returns (Prepared, x0_builder(src), pad, apply_kind, post) —
-        all read off the algorithm's registered ``AlgorithmSpec``."""
+        """Returns (Prepared, PlanKey, x0_builder(src), pad, apply_kind,
+        post) — all read off the algorithm's registered
+        ``AlgorithmSpec``."""
         a = get_algorithm(spec.algo)
+        key = self.plan_key(a.semiring, variant=a.variant, pull=a.pull,
+                            normalize=a.normalize)
         p = self.prepare(a.semiring, variant=a.variant, pull=a.pull,
                          normalize=a.normalize)
         pad = float(a.ring.zero) if a.pad is None else a.pad
         post = a.post if a.post is not None else (lambda v: v)
-        return p, (lambda src: a.init(p, src, pol)), pad, a.update, post
+        return p, key, (lambda src: a.init(p, src, pol)), pad, a.update, \
+            post
 
     def _frontier(self, p: Prepared, src: Optional[int]) -> torch.Tensor:
         """Initial changed-set: just the source's row-block when there is
@@ -453,9 +502,11 @@ class GraphProcessor:
         return torch.from_numpy(ch).to(p.device)
 
     def _dispatch(self, pol: ExecutionPolicy, p: Prepared, x0,
-                  apply_kind: str, src: Optional[int]):
-        """One single-source engine run: (x, RunStats, extra)."""
-        kern = pol.kernel
+                  apply_kind: str, src: Optional[int],
+                  kern: Optional[KernelSpec] = None):
+        """One single-source engine run: (x, RunStats, extra); ``kern``
+        is the concrete spec (``_kernel_for_run``), else the policy's."""
+        kern = kern if kern is not None else pol.kernel
         kw = dict(apply_kind=apply_kind, damping=pol.damping, tol=pol.tol,
                   max_sweeps=pol.max_sweeps)
         if pol.mode == "sync":
@@ -466,10 +517,12 @@ class GraphProcessor:
             x, stats = eng.run_async(p, x0, kernel=kern,
                                      changed0=self._frontier(p, src), **kw)
             return x, stats, {}
-        # distributed: the mesh engines (the ref kernel's registration,
-        # the compacted hand kernel on the card).  dist_flavor picks the
-        # exchange schedule: "sync" = bulk-synchronous (one exchange per
-        # sweep), "async" = self-timed k-local-sweep engine.
+        # distributed: the mesh engines run the ref kernel's registration
+        # (core/placement.py), the compacted hand kernel on the card at its
+        # default knobs, as repro's shard_map runs its ref kernel; the
+        # policy requires impl="ref", so no tuning applies.  dist_flavor
+        # picks the exchange schedule: "sync" = bulk-synchronous (one
+        # exchange per sweep), "async" = self-timed k-local-sweep engine.
         if pol.dist_flavor == "async":
             x, dist = async_dist.distributed_async_run(
                 p, x0, local_sweeps=pol.local_sweeps, **kw)
@@ -480,8 +533,9 @@ class GraphProcessor:
         return x, stats, {"dist": dist}
 
     def _run_batched(self, spec: QuerySpec, pol: ExecutionPolicy,
-                     p: Prepared, x0f, pad, apply_kind, post) -> Result:
-        kern = pol.kernel
+                     p: Prepared, x0f, pad, apply_kind, post,
+                     kern: Optional[KernelSpec] = None) -> Result:
+        kern = kern if kern is not None else pol.kernel
         sources = list(spec.sources)
         if not sources:
             raise ValueError("batched query needs at least one source")

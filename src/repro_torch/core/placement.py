@@ -63,7 +63,8 @@ from ..kernels.spec import KernelSpec
 
 # the distributed engines run the ref kernel's registration, resolved
 # once through the same registry the local engines use; on CUDA tensors
-# it launches the compacted hand kernel
+# it launches the compacted hand kernel at its default knobs (a
+# distributed policy takes impl="ref", so no tuning reaches it)
 _spmv_ref = ops.select_kernel("bsr_spmv", KernelSpec(impl="ref"))
 
 

@@ -15,6 +15,8 @@
 #   bsr_spmv.py, flash_attention.py, wkv6.py
 #                           — build at first use, ctypes binding, checked
 #                             wrappers, launch counters
+#   autotune.py             — measured tuning of the compacted kernels'
+#                             launch knobs (KernelSpec(autotune=True))
 #   cuda_lib.py             — nvcc build + ctypes helper, device rule
 #   ops.py                  — select_kernel registry, attention(), wkv6()
 #                             (device-keyed dispatch)

@@ -15,6 +15,13 @@ caller and never by a fallback:
 Both compute the same bits.  Each source's head states its work split,
 its bound and what its design does about it.
 
+Knobs.  The compacted kernels take two launch knobs (``KernelSpec``'s
+``block_size`` and ``rows_per_step``, kernels/spec.py): the warps of a
+thread block (1..32; 8 by default) and the vertex rows one thread of the
+unfused kernel walks (at least 1; 1 by default; the fused kernel walks one
+row a thread whatever it is given).  Every value gives the same bits.  The
+ELL route and the plain versions take the knobs and ignore them.
+
 Device rule.  A wrapper given CPU tensors runs the plain torch version in
 ``kernels/ref.py``; given CUDA tensors it launches its kernel or raises.
 There is no fallback from a failed build or launch.
@@ -51,6 +58,7 @@ import torch
 from . import ref
 from ..core import semiring as sr
 from .cuda_lib import BASE_FLAGS, CudaLibrary, expect, on_cpu
+from .spec import DEFAULT_BLOCK_SIZE, DEFAULT_ROWS_PER_STEP
 
 SEMIRING_CODES = {"plus_times": 0, "min_plus": 1, "max_min": 2,
                   "min_select": 3}
@@ -60,6 +68,7 @@ BLOCK_SIZES = (8, 16, 32)
 # the compacted kernels walk a row of more entries than this one warp a
 # row, and shorter rows one thread a row
 LONG_ROW = 32
+MAX_WARPS = 32   # 1,024 threads: CUDA's most a block
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "bsr_spmv.cu"
@@ -124,10 +133,11 @@ def _bind(lib) -> None:
 def _bind_compact(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bsr_spmv_compact_launch.argtypes = [
-        p, p, p, i, i, i, p, p, i, i, i, i, i, p]
+        p, p, p, i, i, i, p, p, i, i, i, i, i, i, i, p]
     lib.bsr_spmv_compact_launch.restype = i
     lib.bsr_spmv_fused_compact_launch.argtypes = [
-        p, p, p, i, i, i, p, p, p, p, f, f, f, p, p, p, i, i, i, i, i, i, p]
+        p, p, p, i, i, i, p, p, p, p, f, f, f, p, p, p, i, i, i, i, i, i, i,
+        p]
     lib.bsr_spmv_fused_compact_launch.restype = i
 
 
@@ -265,6 +275,19 @@ def _rows_args(index: CompactIndex):
             index.row_base, LONG_ROW)
 
 
+def check_knobs(block_size: int, rows_per_step: int = 1) -> None:
+    """Raise unless the compacted kernels can launch these knobs: 1..32
+    warps a block, at least one row a thread."""
+    if (not isinstance(block_size, int) or isinstance(block_size, bool)
+            or not 1 <= block_size <= MAX_WARPS):
+        raise ValueError(f"block_size (warps a thread block) must be an int "
+                         f"in 1..{MAX_WARPS}, got {block_size!r}")
+    if (not isinstance(rows_per_step, int) or isinstance(rows_per_step, bool)
+            or rows_per_step < 1):
+        raise ValueError(f"rows_per_step must be an int >= 1, got "
+                         f"{rows_per_step!r}")
+
+
 def _check_plan(vals, cols, nnz, x, semiring):
     if vals.dim() != 4 or vals.shape[2] != vals.shape[3]:
         raise ValueError(f"vals must be (R, K, B, B), got {tuple(vals.shape)}")
@@ -278,16 +301,20 @@ def _check_plan(vals, cols, nnz, x, semiring):
 
 def bsr_spmv(block_vals, block_cols, block_nnz, x,
              semiring: str = "plus_times",
-             index: CompactIndex | None = None) -> torch.Tensor:
+             index: CompactIndex | None = None,
+             block_size: int = DEFAULT_BLOCK_SIZE,
+             rows_per_step: int = DEFAULT_ROWS_PER_STEP) -> torch.Tensor:
     """y[q,r,i] = ⊕_{k<nnz[r], j} vals[r,k,i,j] ⊗ x[q, cols[r,k], j].
 
     x is (Q, C, B), or (C, B) for one query (then y is (R, B)).  On CUDA
     tensors the semiring must be one of the four built-ins.  Given the
     plan's ``index`` (``build_compact_index``) the call takes the
-    compacted route, which reads the index alone; without it the ELL
-    route."""
+    compacted route, which reads the index alone, launched with
+    ``block_size`` warps a block and ``rows_per_step`` rows a thread;
+    without it the ELL route."""
+    check_knobs(block_size, rows_per_step)
     if index is not None:
-        return _spmv_compact(index, x, semiring)
+        return _spmv_compact(index, x, semiring, block_size, rows_per_step)
     if on_cpu(block_vals, block_cols, block_nnz, x):
         return ref.bsr_spmv_ref(block_vals, block_cols, block_nnz, x,
                                 semiring)
@@ -308,7 +335,8 @@ def bsr_spmv(block_vals, block_cols, block_nnz, x,
     return y[0] if single else y
 
 
-def _spmv_compact(index: CompactIndex, x, semiring):
+def _spmv_compact(index: CompactIndex, x, semiring, block_size,
+                  rows_per_step):
     if on_cpu(index.row_ptr, index.pairs, index.long_rows, x):
         return ref.bsr_spmv_compact_ref(index, x, semiring)
     single = x.dim() == 2
@@ -320,7 +348,7 @@ def _spmv_compact(index: CompactIndex, x, semiring):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bsr_spmv_compact_launch(
             *_rows_args(index), xq.data_ptr(), y.data_ptr(), r * b, c, b, q,
-            SEMIRING_CODES[semiring], stream)
+            SEMIRING_CODES[semiring], block_size, rows_per_step, stream)
     LIBRARY_COMPACT.check(rc, "bsr_spmv_compact")
     count_launch("bsr_spmv_compact")
     return y[0] if single else y
@@ -339,7 +367,8 @@ def _host_f32(v) -> float:
 def bsr_spmv_fused(block_vals, block_cols, block_nnz, x, xg, valid,
                    act_rows, damping, tol, inv_n,
                    semiring: str = "min_plus", apply_kind: str = "relax",
-                   index: CompactIndex | None = None):
+                   index: CompactIndex | None = None,
+                   block_size: int = DEFAULT_BLOCK_SIZE):
     """One fused frontier-masked sweep over the rows in ``act_rows``.
 
     Args:
@@ -353,11 +382,13 @@ def bsr_spmv_fused(block_vals, block_cols, block_nnz, x, xg, valid,
       copied from xg bitwise; changed (Q, R) bool; conv (Q,) bool, the
       any-changed flag.  A 2-D x drops the query axis throughout.
     Given ``index`` (the index of THESE rows, e.g. ``plan_index.rows(sl)``)
-    the call takes the compacted route, as ``bsr_spmv`` does.
+    the call takes the compacted route, as ``bsr_spmv`` does, with
+    ``block_size`` warps a block and one row a thread.
     """
+    check_knobs(block_size)
     if index is not None:
         return _fused_compact(index, x, xg, valid, act_rows, damping, tol,
-                              inv_n, semiring, apply_kind)
+                              inv_n, semiring, apply_kind, block_size)
     if on_cpu(block_vals, block_cols, block_nnz, x, xg, valid, act_rows):
         return ref.bsr_spmv_fused_ref(
             block_vals, block_cols, block_nnz, x, xg, valid, act_rows,
@@ -409,7 +440,7 @@ def _fused_result(x_new, changed, conv, single):
 
 
 def _fused_compact(index: CompactIndex, x, xg, valid, act_rows, damping,
-                   tol, inv_n, semiring, apply_kind):
+                   tol, inv_n, semiring, apply_kind, block_size):
     if on_cpu(index.row_ptr, index.pairs, index.long_rows, x, xg, valid,
               act_rows):
         return ref.bsr_spmv_fused_compact_ref(
@@ -429,7 +460,8 @@ def _fused_compact(index: CompactIndex, x, xg, valid, act_rows, damping,
             valid.data_ptr(), act_rows.data_ptr(), _host_f32(damping),
             _host_f32(tol), _host_f32(inv_n),
             x_new.data_ptr(), changed.data_ptr(), conv.data_ptr(), r * b, c,
-            b, q, SEMIRING_CODES[semiring], RULE_CODES[apply_kind], stream)
+            b, q, SEMIRING_CODES[semiring], RULE_CODES[apply_kind],
+            block_size, stream)
     LIBRARY_COMPACT.check(rc, "bsr_spmv_fused_compact")
     count_launch("bsr_spmv_fused_compact")
     return _fused_result(x_new, changed, conv, single)

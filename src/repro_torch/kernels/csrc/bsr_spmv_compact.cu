@@ -28,9 +28,13 @@
 // 1.4 GB for the same sweep, almost all of it padding: its tiles are 1.59 %
 // filled.
 //
-// Work split.  One thread per vertex row; 256 threads a block, so the B rows
-// of a row-block sit in one warp (B = 8, 16, 32) and the fused kernel sets
-// changed[q, r] from one ballot.  blockIdx.y is the query.  A thread walks
+// Work split.  One thread per vertex row (the unfused kernel: rows_per_thread
+// rows, grid-strided); 32 x warps threads a block (the launch's two knobs,
+// kernels/spec.py block_size and rows_per_step; 8 warps and 1 row by
+// default).  A warp's 32 rows are neighbours, so the B rows of a row-block
+// sit in one warp (B = 8, 16, 32) and the fused kernel sets changed[q, r]
+// from one ballot: it walks one row a thread whatever the knob says of the
+// unfused one.  blockIdx.y is the query.  A thread walks
 // its row's entries in order, each one 8-byte load, and gathers x[q, src]
 // through the read-only cache; x (7.9 MB at the CA plan) stays in the 50 MB
 // L2 while the entry stream passes once.  Neighbouring rows' entries are
@@ -44,6 +48,18 @@
 // read their act bit, and a warp with none active exits.  No tensor cores:
 // at 1.59 % fill a tile product on them would do about 60x the useful
 // work, and three of the four rings are not (+, x).
+//
+// Knobs.  A row's value comes from row_value (a thread) or warp_row_value
+// (a long row's warp) in the same k order whatever the launch shape, so
+// every value of the knobs gives the same bits.  Each kernel is built for
+// three launch bounds, 256, 512 and 1024 threads, and a launch takes the
+// least bound that holds its block: a single bound of 1024 would cap every
+// launch at 64 registers a thread, under the 32 partials a thread holds at
+// B 32, and would change the default launch's register allocation.  The
+// unfused kernel is also built twice, for one row a thread and for
+// several (STRIDED): the loop over a thread's rows costs registers (40
+// against 32 at B 16), which the default launch, one row a thread, does
+// not pay.
 //
 // Arithmetic: bit-equal to the ELL kernel and to ref.bsr_spmv_ref.  The ELL
 // kernel gives lane (i, j) of a row the ⊕ over ascending k of
@@ -69,7 +85,6 @@
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Ring { PLUS_TIMES = 0, MIN_PLUS = 1, MAX_MIN = 2, MIN_SELECT = 3 };
@@ -242,24 +257,27 @@ __device__ __forceinline__ float warp_row_value(
 
 // The rows of one launch.  The grid's first long_blocks blocks take the
 // long rows (more than long_row entries), one a warp, so a hub starts first
-// and never holds a warp of short rows; the other blocks take the short
-// rows, one a thread.  long_rows lists the long rows by their id in the
-// index's full row range; row_base is this launch's first row there.
+// and never holds a warp of short rows; the other short_blocks blocks take
+// the short rows, rows_per_thread a thread (1 in the fused kernel), each
+// short_stride rows after the last.  long_rows lists the long rows by their
+// id in the index's full row range; row_base is this launch's first row
+// there.
 struct Rows {
   const int* row_ptr;
   const int2* ent;
   const int* long_rows;
   int n_long, long_blocks, row_base, long_row, n_rows;
+  int short_blocks, short_stride, rows_per_thread;
 };
 
 // This warp's long row (a row of this launch), or -1 past the list's end.
 __device__ __forceinline__ int long_row_of(const Rows& rows) {
-  const int w = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  const int w = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   return w < rows.n_long ? __ldg(rows.long_rows + w) - rows.row_base : -1;
 }
 
-template <int B, int RING>
-__global__ void __launch_bounds__(THREADS)
+template <int B, int RING, int MAXT, bool STRIDED>
+__global__ void __launch_bounds__(MAXT)
 bsr_spmv_compact_kernel(Rows rows, const float* __restrict__ x,
                         float* __restrict__ y, int C) {
   const int q = blockIdx.y;
@@ -274,11 +292,18 @@ bsr_spmv_compact_kernel(Rows rows, const float* __restrict__ x,
     if ((threadIdx.x & 31) == 0) yq[v] = yv;
     return;
   }
-  const int v = (blockIdx.x - rows.long_blocks) * THREADS + threadIdx.x;
-  if (v >= rows.n_rows) return;
-  const int e0 = __ldg(rows.row_ptr + v), e1 = __ldg(rows.row_ptr + v + 1);
-  if (e1 - e0 > rows.long_row) return;  // a warp of the long blocks has it
-  yq[v] = row_value<B, RING>(e0, e1, rows.ent, xq);
+  const int first = (blockIdx.x - rows.long_blocks) * blockDim.x + threadIdx.x;
+  // one row a thread unless STRIDED: the loop's count is then the
+  // constant 1, and the kernel is the one-row kernel it was before the
+  // knob, registers included
+  const int per_thread = STRIDED ? rows.rows_per_thread : 1;
+  for (int s = 0; s < per_thread; ++s) {
+    const int v = first + s * rows.short_stride;
+    if (v >= rows.n_rows) return;
+    const int e0 = __ldg(rows.row_ptr + v), e1 = __ldg(rows.row_ptr + v + 1);
+    if (e1 - e0 > rows.long_row) continue;  // a warp of the long blocks has it
+    yq[v] = row_value<B, RING>(e0, e1, rows.ent, xq);
+  }
 }
 
 // changed[qr] and the conv word of query q (whose atomic is skipped once
@@ -291,8 +316,8 @@ __device__ __forceinline__ void mark_changed(bool* changed, int* conv,
 
 // x_new must hold a copy of xg and changed/conv zeros before the launch:
 // rows of inactive row-blocks pass through bitwise.
-template <int B, int RING>
-__global__ void __launch_bounds__(THREADS)
+template <int B, int RING, int MAXT>
+__global__ void __launch_bounds__(MAXT)
 bsr_spmv_fused_compact_kernel(Rows rows, const float* __restrict__ x,
                               const float* __restrict__ xg,
                               const bool* __restrict__ valid,
@@ -324,7 +349,7 @@ bsr_spmv_fused_compact_kernel(Rows rows, const float* __restrict__ x,
     }
     return;
   }
-  const int v = (blockIdx.x - rows.long_blocks) * THREADS + threadIdx.x;
+  const int v = (blockIdx.x - rows.long_blocks) * blockDim.x + threadIdx.x;
   const size_t qr = (size_t)q * R + v / B;
   // the B rows of a row-block share one act bit, and B | 32
   const bool on = v < rows.n_rows && act[qr];
@@ -352,14 +377,31 @@ bsr_spmv_fused_compact_kernel(Rows rows, const float* __restrict__ x,
 }
 
 dim3 grid_of(const Rows& rows, int Q) {
-  return dim3(rows.long_blocks + (rows.n_rows + THREADS - 1) / THREADS, Q);
+  return dim3(rows.long_blocks + rows.short_blocks, Q);
+}
+
+template <int B, int RING, bool STRIDED>
+void launch_spmv_strided(const Rows& rows, const float* x, float* y, int C,
+                         int Q, int threads, cudaStream_t stream) {
+  const dim3 grid = grid_of(rows, Q);
+  if (threads <= 256)
+    bsr_spmv_compact_kernel<B, RING, 256, STRIDED>
+        <<<grid, threads, 0, stream>>>(rows, x, y, C);
+  else if (threads <= 512)
+    bsr_spmv_compact_kernel<B, RING, 512, STRIDED>
+        <<<grid, threads, 0, stream>>>(rows, x, y, C);
+  else
+    bsr_spmv_compact_kernel<B, RING, 1024, STRIDED>
+        <<<grid, threads, 0, stream>>>(rows, x, y, C);
 }
 
 template <int B, int RING>
 int launch_spmv(Rows rows, const float* x, float* y, int C, int Q,
-                cudaStream_t stream) {
-  bsr_spmv_compact_kernel<B, RING><<<grid_of(rows, Q), THREADS, 0, stream>>>(
-      rows, x, y, C);
+                int threads, cudaStream_t stream) {
+  if (rows.rows_per_thread > 1)
+    launch_spmv_strided<B, RING, true>(rows, x, y, C, Q, threads, stream);
+  else
+    launch_spmv_strided<B, RING, false>(rows, x, y, C, Q, threads, stream);
   return (int)cudaGetLastError();
 }
 
@@ -367,12 +409,21 @@ template <int B, int RING>
 int launch_fused(Rows rows, const float* x, const float* xg,
                  const bool* valid, const bool* act, float damping,
                  float tol, float inv_n, int rule, float* x_new,
-                 bool* changed, int* conv, int C, int Q,
+                 bool* changed, int* conv, int C, int Q, int threads,
                  cudaStream_t stream) {
-  bsr_spmv_fused_compact_kernel<B, RING>
-      <<<grid_of(rows, Q), THREADS, 0, stream>>>(
-          rows, x, xg, valid, act, damping, tol, inv_n, rule, x_new, changed,
-          conv, C);
+  const dim3 grid = grid_of(rows, Q);
+  if (threads <= 256)
+    bsr_spmv_fused_compact_kernel<B, RING, 256><<<grid, threads, 0, stream>>>(
+        rows, x, xg, valid, act, damping, tol, inv_n, rule, x_new, changed,
+        conv, C);
+  else if (threads <= 512)
+    bsr_spmv_fused_compact_kernel<B, RING, 512><<<grid, threads, 0, stream>>>(
+        rows, x, xg, valid, act, damping, tol, inv_n, rule, x_new, changed,
+        conv, C);
+  else
+    bsr_spmv_fused_compact_kernel<B, RING, 1024>
+        <<<grid, threads, 0, stream>>>(rows, x, xg, valid, act, damping, tol,
+                                       inv_n, rule, x_new, changed, conv, C);
   return (int)cudaGetLastError();
 }
 
@@ -396,33 +447,43 @@ int launch_fused(Rows rows, const float* x, const float* xg,
 
 bool bad_ring(int ring) { return ring < 0 || ring > 3; }
 
+bool bad_shape(int warps, int rows_per_thread) {
+  return warps < 1 || warps > 32 || rows_per_thread < 1;
+}
+
 Rows rows_of(const int* row_ptr, const void* ent, const int* long_rows,
-             int n_long, int row_base, int long_row, int n_rows) {
-  const int per_block = THREADS / 32;
+             int n_long, int row_base, int long_row, int n_rows, int warps,
+             int rows_per_thread) {
+  const int threads = 32 * warps;
+  const long long per_block = (long long)threads * rows_per_thread;
+  const int short_blocks = (int)((n_rows + per_block - 1) / per_block);
   return Rows{row_ptr, (const int2*)ent, long_rows, n_long,
-              (n_long + per_block - 1) / per_block, row_base, long_row,
-              n_rows};
+              (n_long + warps - 1) / warps, row_base, long_row, n_rows,
+              short_blocks, short_blocks * threads, rows_per_thread};
 }
 
 }  // namespace
 
 // C interface.  Each returns 0, a cudaError_t from the launch, or -1 for a
-// block size / ring / rule the kernels do not implement.  n_rows = R * B;
-// long_rows (n_long) lists the rows of more than long_row entries, by
-// their id in the index's full row range, of which row_ptr's first row is
-// row_base.
+// block size / ring / rule the kernels do not implement or a launch shape
+// out of range.  n_rows = R * B; long_rows (n_long) lists the rows of more
+// than long_row entries, by their id in the index's full row range, of
+// which row_ptr's first row is row_base.  warps (1..32) is a thread block's
+// warps; rows_per_thread (>= 1) the rows a thread of the unfused kernel
+// walks.
 extern "C" {
 
 int bsr_spmv_compact_launch(const int* row_ptr, const void* ent,
                             const int* long_rows, int n_long, int row_base,
                             int long_row, const float* x, float* y,
                             int n_rows, int C, int B, int Q, int ring,
-                            void* stream) {
-  if (bad_ring(ring)) return -1;
+                            int warps, int rows_per_thread, void* stream) {
+  if (bad_ring(ring) || bad_shape(warps, rows_per_thread)) return -1;
   if (n_rows == 0 || Q == 0) return 0;
   const Rows rows = rows_of(row_ptr, ent, long_rows, n_long, row_base,
-                            long_row, n_rows);
-  COMPACT_DISPATCH(launch_spmv, rows, x, y, C, Q, (cudaStream_t)stream)
+                            long_row, n_rows, warps, rows_per_thread);
+  COMPACT_DISPATCH(launch_spmv, rows, x, y, C, Q, 32 * warps,
+                   (cudaStream_t)stream)
 }
 
 int bsr_spmv_fused_compact_launch(const int* row_ptr, const void* ent,
@@ -433,18 +494,21 @@ int bsr_spmv_fused_compact_launch(const int* row_ptr, const void* ent,
                                   float damping, float tol, float inv_n,
                                   float* x_new, bool* changed, int* conv,
                                   int n_rows, int C, int B, int Q, int ring,
-                                  int rule, void* stream) {
-  if (bad_ring(ring) || rule < RELAX || rule > IDENTITY) return -1;
+                                  int rule, int warps, void* stream) {
+  if (bad_ring(ring) || rule < RELAX || rule > IDENTITY ||
+      bad_shape(warps, 1))
+    return -1;
   if (n_rows == 0 || Q == 0) return 0;
   const Rows rows = rows_of(row_ptr, ent, long_rows, n_long, row_base,
-                            long_row, n_rows);
+                            long_row, n_rows, warps, 1);
   COMPACT_DISPATCH(launch_fused, rows, x, xg, valid, act, damping, tol,
-                   inv_n, rule, x_new, changed, conv, C, Q,
+                   inv_n, rule, x_new, changed, conv, C, Q, 32 * warps,
                    (cudaStream_t)stream)
 }
 
 const char* bsr_compact_error_string(int code) {
-  if (code == -1) return "unsupported block size, semiring or update rule";
+  if (code == -1)
+    return "unsupported block size, semiring, update rule or launch shape";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -14,6 +14,12 @@ decides by the device of the tensors it is given:
   * CPU tensors: both impls run the plain torch versions in
     ``kernels/ref.py`` (the wrappers themselves make that choice), over
     the index when one is given.
+  * The callable launches the compacted kernels with the spec's knobs,
+    ``block_size`` warps a block and (unfused) ``rows_per_step`` rows a
+    thread; a knob left None runs its default (8 warps, 1 row), as does
+    ``impl="ref"``, which has no knobs.  The session hands the engines
+    the concrete spec (``KernelSpec.concrete``, with an autotuned record
+    when ``autotune=True``).
   * A registered custom semiring runs the plain versions on every device:
     the kernels know only the four built-in rings.
   * Attention is not in the registry: ``attention()`` below keys on the
@@ -56,7 +62,8 @@ from . import ref as _ref
 from . import wkv6 as _wkv6
 from .. import resilience
 from ..core.semiring import BUILTIN
-from .spec import KernelSpec, as_kernel_spec
+from .spec import (DEFAULT_BLOCK_SIZE, DEFAULT_ROWS_PER_STEP, KernelSpec,
+                   as_kernel_spec)
 
 _KERNELS = {}
 
@@ -90,38 +97,39 @@ def select_kernel(op: str, spec=None):
     return builder(spec)
 
 
-def _spmv(block_vals, block_cols, block_nnz, x, semiring="plus_times",
-          index=None):
-    if semiring not in BUILTIN:
-        return _ref.bsr_spmv_ref(block_vals, block_cols, block_nnz, x,
-                                 semiring)
-    return _cuda.bsr_spmv(block_vals, block_cols, block_nnz, x, semiring,
-                          index=index)
-
-
-def _spmv_fused(block_vals, block_cols, block_nnz, x, xg, valid, act_rows,
-                damping, tol, inv_n, semiring="min_plus",
-                apply_kind="relax", index=None):
-    if semiring not in BUILTIN:
-        return _ref.bsr_spmv_fused_ref(
-            block_vals, block_cols, block_nnz, x, xg, valid, act_rows,
-            damping, tol, inv_n, semiring, apply_kind)
-    return _cuda.bsr_spmv_fused(block_vals, block_cols, block_nnz, x, xg,
-                                valid, act_rows, damping, tol, inv_n,
-                                semiring, apply_kind, index=index)
-
-
 @register_kernel("bsr_spmv", "ref")
 @register_kernel("bsr_spmv", "pallas")
 def _build_bsr_spmv(spec: KernelSpec):
-    del spec  # the CUDA kernel has no tiling knobs yet
-    return _spmv
+    bk = spec.block_size or DEFAULT_BLOCK_SIZE
+    rs = spec.rows_per_step or DEFAULT_ROWS_PER_STEP
+
+    def spmv(block_vals, block_cols, block_nnz, x, semiring="plus_times",
+             index=None):
+        if semiring not in BUILTIN:
+            return _ref.bsr_spmv_ref(block_vals, block_cols, block_nnz, x,
+                                     semiring)
+        return _cuda.bsr_spmv(block_vals, block_cols, block_nnz, x,
+                              semiring, index=index, block_size=bk,
+                              rows_per_step=rs)
+    return spmv
 
 
 @register_kernel("bsr_spmv", "pallas", fused=True)
 def _build_bsr_spmv_fused(spec: KernelSpec):
-    del spec
-    return _spmv_fused
+    bk = spec.block_size or DEFAULT_BLOCK_SIZE
+
+    def spmv_fused(block_vals, block_cols, block_nnz, x, xg, valid,
+                   act_rows, damping, tol, inv_n, semiring="min_plus",
+                   apply_kind="relax", index=None):
+        if semiring not in BUILTIN:
+            return _ref.bsr_spmv_fused_ref(
+                block_vals, block_cols, block_nnz, x, xg, valid, act_rows,
+                damping, tol, inv_n, semiring, apply_kind)
+        return _cuda.bsr_spmv_fused(
+            block_vals, block_cols, block_nnz, x, xg, valid, act_rows,
+            damping, tol, inv_n, semiring, apply_kind, index=index,
+            block_size=bk)
+    return spmv_fused
 
 
 def attention(q, k, v, causal=True, window=None, scale=None):

@@ -4,22 +4,33 @@ Field for field the JAX package's ``KernelSpec``, with the same
 validation, so policies compare and hash alike in both packages:
 
   impl           "ref" or "pallas".  On CUDA tensors both run the
-                 hand-written CUDA SpMV kernel (``kernels/csrc/
-                 bsr_spmv.cu``); "pallas" is the historical spelling of
-                 "the hand-written kernel" and is the only impl that may
-                 ask for the fused kernel.  On CPU tensors both run the
-                 plain torch versions in ``kernels/ref.py``.
-  block_size     kept for equality and validation.  The CUDA kernels'
-                 own tiling (one thread block per row-block and query,
-                 one thread per tile element) ignores it.
-  rows_per_step  kept for equality and validation; ignored by the CUDA
-                 kernels, as ``block_size`` is.  The fused kernel only
-                 accepts None/1 here, as in the JAX package.
+                 hand-written CUDA SpMV kernels (the compacted route,
+                 ``kernels/csrc/bsr_spmv_compact.cu``, on every engine);
+                 "pallas" is the historical spelling of "the hand-written
+                 kernel" and is the only impl that may set the knobs below
+                 or ask for the fused kernel.  On CPU tensors both run the
+                 plain torch versions in ``kernels/ref.py``, which ignore
+                 the knobs.
+  block_size     warps per thread block of the compacted kernels (32 ×
+                 block_size threads, 1..32).  None = the default, 8 (256
+                 threads), or the autotuned winner when ``autotune=True``.
+  rows_per_step  vertex rows one thread walks in the unfused compacted
+                 kernel, grid-strided so that a warp's entry loads still
+                 fall on neighbouring rows.  The fused kernel keeps 1: its
+                 ``changed`` ballot needs one row per lane, so it only
+                 accepts None/1 here, as in the JAX package.  None = 1 or
+                 the autotuned winner.
   fuse_frontier  run the fused relax + frontier-select + convergence
                  kernel (``bsr_spmv.bsr_spmv_fused``) instead of the SpMV
                  followed by the torch apply step.
-  autotune       accepted by the spec; the session rejects it with a
-                 ValueError until the autotuner is ported (ROADMAP).
+  autotune       measure (not model) the free knobs on a calibration
+                 sweep of the plan on its device (``kernels/autotune.py``)
+                 and cache the winner beside the plan, in the PlanStore
+                 when the session has one.
+
+The defaults are the launch the kernels had before they took knobs (256
+threads, one row a thread), and every value of the knobs gives the same
+bits.
 
 Incoherent combinations fail loudly at construction: every knob other
 than ``impl`` describes the hand-written kernel, so they all require
@@ -36,6 +47,9 @@ import dataclasses
 from typing import Optional
 
 IMPLS = ("ref", "pallas")
+
+DEFAULT_BLOCK_SIZE = 8     # warps a thread block: 256 threads
+DEFAULT_ROWS_PER_STEP = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +92,24 @@ class KernelSpec:
                     "autotune=True with every tunable pinned "
                     f"({', '.join(tunables)}) has nothing to tune; "
                     "unpin one or drop autotune")
+
+    def concrete(self, tuning: Optional[dict] = None) -> "KernelSpec":
+        """The spec engines actually execute: free knobs filled from a
+        tuning record (``kernels.autotune`` output) or defaults, and the
+        ``autotune`` request flag stripped (it described *how to pick*
+        the knobs, not the kernel itself)."""
+        t = tuning or {}
+        if self.impl == "ref":
+            return KernelSpec(impl="ref")
+        bk = self.block_size or int(t.get("block_size")
+                                    or DEFAULT_BLOCK_SIZE)
+        if self.fuse_frontier:
+            rs = 1
+        else:
+            rs = self.rows_per_step or int(t.get("rows_per_step")
+                                           or DEFAULT_ROWS_PER_STEP)
+        return KernelSpec(impl=self.impl, block_size=bk, rows_per_step=rs,
+                          fuse_frontier=self.fuse_frontier, autotune=False)
 
 
 def as_kernel_spec(spec) -> KernelSpec:

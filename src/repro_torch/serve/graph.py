@@ -76,9 +76,13 @@ def _plan_filename(fingerprint: str, key: PlanKey) -> str:
 # instead of on the first unlucky request (serve.server.GraphServer)
 ACCESS_LOG = "plan_access.json"
 # kernel tuning records keyed like plans: (fingerprint,
-# PlanKey-with-kernel).  Kept as storage only (``get_tuning`` /
-# ``put_tuning``): the autotuner that measures them is not ported yet
-# (ROADMAP queue 1), so nothing here writes one on its own
+# PlanKey-with-kernel).  ``GraphProcessor._ensure_tuning`` measures a
+# record with ``kernels/autotune.py`` at the first query of an
+# ``autotune=True`` spec, under ``tuning_lock`` (so once per key, however
+# many waves race to it), and stores it here; the sidecar log keeps it
+# across restarts.  A log written by the JAX package's store holds knobs
+# measured on its Pallas kernel; they are valid knobs here too, and the
+# port runs them as they are
 TUNINGS_LOG = "plan_tunings.json"
 _ACCESS_FLUSH_S = 1.0   # throttle: at most one log write per second
 # corrupt cache files are MOVED here (not deleted): evidence survives
@@ -142,6 +146,10 @@ class PlanStore:
         # measured kernel tunings, keyed like plans but with the
         # requesting KernelSpec folded into the PlanKey
         self._tunings: Dict[Tuple[str, PlanKey], dict] = {}
+        # held while a record is measured (``GraphProcessor.
+        # _ensure_tuning``), apart from ``_lock``: a measurement takes
+        # seconds, and plan lookups must not wait on it
+        self.tuning_lock = threading.Lock()
         if self.cache_dir:
             self._load_access_log()
             self._load_tunings()
@@ -277,7 +285,7 @@ class PlanStore:
             f"{os.path.basename(path)!r}: {reason}", RuntimeWarning,
             stacklevel=3)
 
-    # -- kernel tuning records (storage only) ----------------------------
+    # -- kernel tuning records -------------------------------------------
 
     def get_tuning(self, fingerprint: str, key: PlanKey) -> Optional[dict]:
         with self._lock:

@@ -5,9 +5,9 @@
 algorithms must equal the JAX package's values bit for bit; PageRank
 stays within atol=1e-6 of it.  Oracle tolerances are those of
 tests/test_algorithms.py.  Also: policy/spec validation equal to the JAX
-package's, the refusal of what is not ported yet (the autotuner), the
-distributed specs once refused now running, the device rule, and that
-the package imports neither jax nor the JAX package.
+package's, the autotuner's and the distributed specs once refused now
+running, the device rule, and that the package imports neither jax nor
+the JAX package.
 """
 
 import pathlib
@@ -274,23 +274,30 @@ def test_policy_but_and_hash_equal_reference():
         tapi.QuerySpec(algo="warp")
 
 
-# -- what is not ported yet is refused, never degraded ---------------------
+# -- the autotuner, once refused, now runs -----------------------------------
 
 
 @pytest.mark.parametrize("make", [
-    lambda: tapi.QuerySpec(algo="sssp", sources=(0,),
-                           policy=tapi.ExecutionPolicy(
-                               mode="async", kernel=tapi.KernelSpec(
-                                   impl="pallas", autotune=True))),
+    lambda api, kernel: api.QuerySpec(algo="sssp", sources=(0,),
+                                      policy=api.ExecutionPolicy(
+                                          mode="async", kernel=kernel)),
 ], ids=["autotune"])
-def test_unported_raise_value_error(make):
-    _, tp = _procs("road")
+def test_autotune_spec_runs(make):
+    """``KernelSpec(autotune=True)`` runs, measures one tuning, and gives
+    the JAX package's values (its ``impl="ref"`` run: its Pallas kernel
+    does not run on this tree's JAX)."""
+    jp, tp = _procs("road")
     plan = trz.FaultPlan([])
-    with trz.inject(plan), pytest.raises(ValueError, match="ROADMAP"):
-        tp.run(make())
-    assert "engine.run" not in plan.stats()  # nothing was executed
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tp.run(make()).platform_models()
+    with trz.inject(plan):
+        res = tp.run(make(tapi, tapi.KernelSpec(impl="pallas",
+                                                autotune=True)))
+    assert plan.stats()["engine.run"]["hits"] == 1
+    assert "degraded" not in res.extra
+    want = jp.run(make(japi, japi.KernelSpec(impl="ref")))
+    np.testing.assert_array_equal(res.values, np.asarray(want.values))
+    assert res.stats.sweeps == want.stats.sweeps
+    assert tp.cache_info()["tunings"] == 1
+    assert set(res.platform_models()) == {"nale", "cpu"}
 
 
 @pytest.mark.parametrize("make", [

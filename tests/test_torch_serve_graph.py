@@ -324,9 +324,9 @@ def test_tampered_checksum_detected(road, tmp_path):
 
 
 def test_tuning_records_survive_a_store_restart(road, tmp_path):
-    """The tunings sidecar as storage (``test_tunings_survive_plan_store_
-    restart`` measures its records with the autotuner, which is not
-    ported): records written by one store are read by the next."""
+    """The tunings sidecar as storage: records written by one store are
+    read by the next (tests/test_torch_autotune.py's ``test_tunings_
+    survive_plan_store_restart`` measures them with the autotuner)."""
     store = api.PlanStore(cache_dir=str(tmp_path), device=CPU)
     fp = road.fingerprint()
     key = api.PlanKey("min_plus", "base", True, None, 16, 8, True,
