@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA GPU: the graph engine's main
-path, LM serving (granite-3-2b at full width) and RWKV-6 serving
-(rwkv6-1.6b at full width and depth), every hand-written kernel against
-its plain version.
+path, LM serving (granite-3-2b at full width), RWKV-6 serving
+(rwkv6-1.6b at full width and depth) and Griffin serving
+(recurrentgemma-9b at full width and depth), every hand-written kernel
+against its plain version.
 
-    python3 chip_smoke.py            # everything (about 10 minutes)
+    python3 chip_smoke.py            # everything (about 12 minutes)
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
@@ -17,7 +18,9 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      own, by kernel and launch bound); the two tensor-core
      libraries must show 0 spill bytes, no "wgmma ... serialized" warning
      and tensor-core instructions in their SASS (``cuobjdump -sass``):
-     HGMMA for attention, HMMA for the chunked WKV6;
+     HGMMA for attention, HMMA for the chunked WKV6; the CUDA-core flash
+     library's registers and spill bytes by dtype and padded head dim
+     (32 to 256);
   3. each SpMV kernel of both routes against its plain torch version on
      the card: the CA stand-in at scale 0.02 for the 4 semirings × B ∈
      {16, 32}, the fused kernels over 5 update rules × {empty, sparse,
@@ -111,10 +114,13 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      head dims: CUDA cores): the granite prefill shape (B 4, H 32, Hkv 8,
      S 1024, D 64, causal) in bf16 and f32, ragged non-causal S = 100,
      windows, D = 128, GQA group 32, the model's (B, S, H, D) memory,
-     D = 32, and B 1 x H 32 x S 16384 causal (with its device time beside
-     SDPA's); each case within an elementwise and a relative-L2 limit,
-     and a planted fault (one key tile dropped) must break both at D 64
-     and D 128;
+     D = 32, recurrentgemma-9b's prefill (B 4, H 16, Hkv 1, S 3072, D
+     256, window 2048) in bf16 and in f32 at S 1024, a ragged S = 777
+     full at D 256, nemotron-4-340b's D 192 (H 96, Hkv 8, S 1024), and B
+     1 x H 32 x S 16384 causal (with its device time beside SDPA's); each
+     case within an elementwise and a relative-L2 limit, and a planted
+     fault (one key tile dropped) must break both at D 64, D 128 and
+     recurrentgemma's D 256;
   7. LM serving: granite-3-2b (40 layers, d_model 2048, 2.53 B
      parameters, random weights from seed 0, bf16) through ``generate``
      (4 prompts x 1024 tokens, 32 new) and ``ServeLoop`` (4 slots, 8 such
@@ -161,11 +167,30 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      one's at a decode step, each beside its bound (bytes, or operations
      at the peak of its units: the f32 CUDA cores, the bf16 tensor cores)
      and its plain version's time (no library call computes WKV6);
- 12. a JSON line with every kernel; the last line is
+ 12. Griffin serving, after rwkv6's weights are freed: recurrentgemma-9b
+     (38 layers: 12 x (recurrent, recurrent, local_attn) + 2 recurrent;
+     d_model 4096, 16 heads, 1 kv head of 256, window 2048, lru_dim
+     4096; param_count 9,396,297,728; random from seed 3, bf16) through
+     ``generate`` (4 prompts x 3072 tokens, 32 new) and ``ServeLoop`` (4
+     slots, 8 such requests, cache_len 3200);
+     ``launch_counts["flash_attention"]`` and its CUDA-core count are 12 x
+     the prefills (none at decode), the tensor-core count 0; the first
+     wave's tokens equal the static batch's; one wave's prefill logits
+     against the same model with mha_ref, bf16 and its f32 upcast (whole
+     superblocks cut, and the cut printed, where the upcast does not fit
+     beside the model), where a dropped key tile in every local layer
+     must fail the f32 gate; the serving metrics, the prefill's device
+     time split into GEMMs, flash, the RG-LRU time loop (one ``addcmul``
+     a step: 26 x 3072 launches a prefill) and the rest, peak memory;
+ 13. the CUDA-core flash kernel's times at recurrentgemma's prefill shape
+     and at nemotron's D 192 (call, device, bound, plain, SDPA with the
+     kernel it ran: a boolean window mask for recurrentgemma);
+ 14. a JSON line with every kernel; the last line is
      ``{"ok": true, "device": {...}}``.
 
-Each earlier JSON line carries the card's name and power limit.  To
-iterate on one part, call the phases from Python, e.g.
+Each earlier JSON line carries the card's name and power limit and the
+seconds since the script started (``elapsed_s``).  To iterate on one
+part, call the phases from Python, e.g.
 
     python3 -c 'import chip_smoke as c; c.setup(); c.build_all(); c.rwkv_phases()'
 """
@@ -204,12 +229,14 @@ CA_SCALE, FB_SCALE, SMALL_SCALE = 1.0, 0.005, 0.02
 PR_TOL = {"ca": 1e-11, "fb": 1e-10}
 
 CARD = {}
+T0 = time.perf_counter()   # each JSON line's elapsed_s counts from here
 PREPARE_S = {}   # the main path's seconds to prepare each plan, by key
 
 
 def emit(**rec):
     print(json.dumps(dict(rec, card=CARD.get("name"),
-                          power_limit=CARD.get("power_limit"))),
+                          power_limit=CARD.get("power_limit"),
+                          elapsed_s=time.perf_counter() - T0)),
           flush=True)
 
 
@@ -695,27 +722,40 @@ def device_busy(events):
              for e in top])
 
 
-def kernel_device_ms(fn, name="", reps=20, warmup=5):
-    """Device time of one call of ``fn``, from torch.profiler over
-    ``reps`` calls: for each kernel, copy or set the call puts on the card
-    whose name holds ``name``, its mean device time per launch times its
-    launches per call.  The host's share of a call, which CUDA events
-    around a small call also count, is left out.  The first ``warmup``
-    calls run under the profiler but are not kept: it misses launches
-    right after it starts.  "not measured" when it records none."""
+def device_events(fn, reps=20, warmup=5, attempts=3):
+    """The profiler's device events (kernels, copies, sets) over ``reps``
+    calls of ``fn``, after ``warmup`` calls that run under the profiler but
+    are not kept: it misses launches right after it starts.  A profile
+    that records none (the profiler on the card now and then does) is
+    taken again, ``attempts`` times in all; [] if none recorded any."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=warmup, active=reps,
-                                   repeat=1)) as prof:
-        for _ in range(warmup + reps):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False) and e.count
-           and name in e.key]
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=warmup, active=reps,
+                                       repeat=1)) as prof:
+            for _ in range(warmup + reps):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.count]
+        if evs:
+            return evs
+    return []
+
+
+def kernel_device_ms(fn, name="", reps=20, warmup=5):
+    """Device time of one call of ``fn``, from torch.profiler over
+    ``reps`` calls (``device_events``): for each kernel, copy or set the
+    call puts on the card whose name holds ``name``, its mean device time
+    per launch times its launches per call.  The host's share of a call,
+    which CUDA events around a small call also count, is left out.  "not
+    measured" when it records none."""
+    evs = [e for e in device_events(fn, reps, warmup) if name in e.key]
     if not evs:
         return "not measured"
     return sum(e.self_device_time_total / e.count * max(1, round(
@@ -2275,6 +2315,9 @@ ATTN_REL_L2 = {"bfloat16": 1e-2, "float32": 1e-5}
 # H100); printed beside it are the bf16 model's own distance from f32 and
 # the distance of a dropped key tile in every layer.
 LOGIT_REL_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+# room left beside the f32 upcast for its prefills (recurrentgemma's f32
+# prefill of 4 x 3072 tokens with mha_ref's scores: about 10 GB)
+UPCAST_HEADROOM_GB = 8
 # a flipped greedy token is accepted when its logit and the static path's
 # token's logit differ by at most this (two bf16 ulps at |logit| < 8)
 FLIP_TOL = 0.125
@@ -2330,7 +2373,7 @@ def _planted_fault(q, k, v, want, causal, window, what):
 def attention_vs_plain(gen):
     """The flash kernels against their plain version at the serving shapes,
     each case on the route ``flash_attention.route`` gives it; returns the
-    largest |kernel − plain|."""
+    largest |kernel − plain| of each route."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref as tref
@@ -2356,9 +2399,22 @@ def attention_vs_plain(gen):
          64, bf16, True, None, True),
         # the CUDA-core kernel's bf16 route
         ("D=32 bf16", 1, 8, 2, 512, 32, bf16, True, None),
+        # head dims 192 and 256 (CUDA cores): recurrentgemma-9b's prefill
+        # (MQA, window 2048, the window masking every query past 2047)
+        # and nemotron-4-340b's
+        ("recurrentgemma prefill D=256 window 2048 bf16", PROMPTS,
+         16, 1, GRIFFIN_PROMPT_LEN, 256, bf16, True, GRIFFIN_WINDOW),
+        ("recurrentgemma D=256 window 2048 S=1024 f32", PROMPTS, 16,
+         1, 1024, 256, f32, True, GRIFFIN_WINDOW),
+        ("D=256 ragged S=777 full bf16", 1, 16, 1, 777, 256, bf16, False,
+         None),
+        ("nemotron D=192 bf16", 1, 96, 8, 1024, 192, bf16, True, None),
     ]
-    fault_at = ("granite prefill bf16", "D=128 chatglm3 bf16")
-    worst = 0.0
+    fault_at = {"granite prefill bf16": "tensor_cores",
+                "D=128 chatglm3 bf16": "tensor_cores",
+                "recurrentgemma prefill D=256 window 2048 bf16":
+                    "cuda_cores"}
+    worst = {"tensor_cores": 0.0, "cuda_cores": 0.0}
     for name, b, h, hkv, sl, d, dt, causal, window, *layout in cases:
         q, k, v = _qkv(gen, b, h, hkv, sl, d, dt, model_layout=bool(layout))
         path = fa.route(dt, d)
@@ -2368,9 +2424,9 @@ def attention_vs_plain(gen):
                 before["flash_attention_" + path] + 1:
             raise AssertionError(f"{name}: not launched on {path}")
         want = tref.attention_ref(q, k, v, causal=causal, window=window)
-        worst = max(worst, _attn_check(got, want, dt, name, path))
+        worst[path] = max(worst[path], _attn_check(got, want, dt, name, path))
         if name in fault_at:
-            if path != "tensor_cores":
+            if path != fault_at[name]:
                 raise AssertionError(f"{name} ran on {path}")
             _planted_fault(q, k, v, want, causal, window, name)
     # the long case against mha_chunked, kv heads repeated by hand
@@ -2378,8 +2434,9 @@ def attention_vs_plain(gen):
     got = fa.flash_attention(q, k, v)
     want = tref.mha_chunked(q, k.repeat_interleave(4, 1),
                             v.repeat_interleave(4, 1))
-    worst = max(worst, _attn_check(got, want, bf16, f"long S={LONG_S}",
-                                   fa.route(bf16, 64)))
+    path = fa.route(bf16, 64)
+    worst[path] = max(worst[path], _attn_check(got, want, bf16,
+                                               f"long S={LONG_S}", path))
     del want
     long_ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps=3)
     long_dev = kernel_device_ms(lambda: fa.flash_attention(q, k, v), reps=3)
@@ -2394,12 +2451,31 @@ def attention_vs_plain(gen):
     return worst
 
 
-def sdpa_call(q, k, v):
-    """``scaled_dot_product_attention`` on the same inputs: the yardstick,
-    never called by the port."""
+def sdpa_call(q, k, v, window=None):
+    """``scaled_dot_product_attention`` on the same inputs, causal (under a
+    window: a boolean mask of the kept pairs): the yardstick, never called
+    by the port."""
+    import torch
     import torch.nn.functional as F
-    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+    s = q.shape[2]
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None]
+    mask = (kp <= qp) & (kp > qp - window)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
+
+
+def top_kernel(fn) -> str:
+    """The name of the kernel that takes the most device time in a call
+    of ``fn`` (which backend a library call took), from
+    ``device_events``; "not measured" when it records none."""
+    evs = device_events(fn, reps=5)
+    if not evs:
+        return "not measured"
+    return max(evs, key=lambda e: e.self_device_time_total).key[:120]
 
 
 def _attn_check(got, want, dtype, what, path) -> float:
@@ -2473,8 +2549,9 @@ def check_tokens(cfg, model, prompts, static, reqs):
     import torch
     from repro_torch.models import lm
     flips = []
+    prompt_len = prompts.shape[1]
     for i, r in enumerate(reqs[:PROMPTS]):
-        want = static[i, PROMPT_LEN:].tolist()
+        want = static[i, prompt_len:].tolist()
         if len(r.generated) != NEW_TOKENS:
             raise AssertionError(f"request {i}: {len(r.generated)} tokens")
         if r.generated == want:
@@ -2496,14 +2573,54 @@ def check_tokens(cfg, model, prompts, static, reqs):
     return flips
 
 
-def check_prefill_logits(cfg, model, toks):
+def free_device_bytes() -> int:
+    import torch
+    return torch.cuda.mem_get_info()[0]
+
+
+def upcast(cfg, model):
+    """(config, model) with the weights in f32 on the card, for the logit
+    gate: every layer where the f32 copy fits beside the served model
+    with UPCAST_HEADROOM_GB left for a prefill, else the first whole
+    superblocks that do, two at least (a key tile dropped in the first
+    local layer reaches the last token's logits only through a second
+    one); the cut is printed."""
+    import copy
+    import dataclasses
+    import gc
+    import torch
+    from torch import nn
+    gc.collect()
+    torch.cuda.empty_cache()
+    budget = free_device_bytes() - UPCAST_HEADROOM_GB * 1e9
+    per_layer = [4 * sum(p.numel() for p in b.parameters())
+                 for b in model.blocks]
+    top = 4 * sum(p.numel() for n, p in model.named_parameters()
+                  if not n.startswith("blocks."))
+    keep = cfg.num_layers
+    step = len(cfg.block_pattern)
+    while keep > 2 * step and top + sum(per_layer[:keep]) > budget:
+        keep = (keep - 1) // step * step
+    emit(phase="upcast", arch=cfg.name, layers=keep,
+         cut_from=cfg.num_layers if keep < cfg.num_layers else None,
+         f32_gb=(top + sum(per_layer[:keep])) / 1e9, budget_gb=budget / 1e9)
+    blocks = model.blocks
+    model.blocks = nn.ModuleList(list(blocks)[:keep])
+    try:
+        m32 = copy.deepcopy(model).float()
+    finally:
+        model.blocks = blocks
+    return dataclasses.replace(cfg, num_layers=keep), m32
+
+
+def check_prefill_logits(cfg, model, toks, phase="lm_logits"):
     """One wave's prefill logits with the kernel against the same model
     with mha_ref called explicitly: the served bf16 model, and its
-    weights upcast to f32.  Beside each: the plain path on the first two
-    prompts alone (another batch size, so other matmul kernels), and a
-    dropped key tile in every layer; then the bf16 model's own distance
-    from its f32 upcast."""
-    import copy
+    weights upcast to f32 (``upcast``).  Beside each: the plain path on
+    the first two prompts alone (another batch size, so other matmul
+    kernels), and a dropped key tile in every layer, which must read
+    above the f32 gate; then the bf16 model's own distance from its f32
+    upcast."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.models import lm
@@ -2511,29 +2628,33 @@ def check_prefill_logits(cfg, model, toks):
     def rel(a, b):
         return float((a.float() - b.float()).norm() / b.float().norm())
 
-    m32 = copy.deepcopy(model).float()
+    cache_len = toks.shape[1]
+    cfg32, m32 = upcast(cfg, model)
     plain = {}
-    for dt, m in (("bfloat16", model), ("float32", m32)):
-        got, _ = lm.prefill(cfg, m, toks, cache_len=PROMPT_LEN)
+    for dt, c, m in (("bfloat16", cfg, model), ("float32", cfg32, m32)):
+        got, _ = lm.prefill(c, m, toks, cache_len=cache_len)
         with ops_swapped("attention", ref.attention_ref):
-            want, _ = lm.prefill(cfg, m, toks, cache_len=PROMPT_LEN)
-            half, _ = lm.prefill(cfg, m, toks[:2], cache_len=PROMPT_LEN)
+            want, _ = lm.prefill(c, m, toks, cache_len=cache_len)
+            half, _ = lm.prefill(c, m, toks[:2], cache_len=cache_len)
         with ops_swapped("attention", dropped_tile_attention):
-            bad, _ = lm.prefill(cfg, m, toks, cache_len=PROMPT_LEN)
+            bad, _ = lm.prefill(c, m, toks, cache_len=cache_len)
         plain[dt] = want
         err = rel(got, want)
         finite = bool(torch.isfinite(got).all())
-        emit(phase="lm_logits", dtype=dt, rel_l2=err,
+        emit(phase=phase, dtype=dt, layers=c.num_layers, rel_l2=err,
              tol=LOGIT_REL_TOL[dt], batch2_rel_l2=rel(half, want[:2]),
              dropped_tile_rel_l2=rel(bad, want),
              max_abs=float((got.float() - want.float()).abs().max()),
              max_ref=float(want.float().abs().max()),
              top1_agree=float((got.argmax(-1) == want.argmax(-1))
                               .float().mean()), finite=finite)
-        if not finite or err > LOGIT_REL_TOL[dt]:
-            raise AssertionError(f"{dt} prefill logits off mha_ref: {err}")
-    emit(phase="lm_logits_bf16_vs_f32",
-         rel_l2=rel(plain["bfloat16"], plain["float32"]))
+        if not finite or err > LOGIT_REL_TOL[dt] or (
+                dt == "float32" and rel(bad, want) <= LOGIT_REL_TOL[dt]):
+            raise AssertionError(f"{dt} prefill logits off mha_ref: {err}; "
+                                 f"a dropped key tile: {rel(bad, want)}")
+    if cfg32.num_layers == cfg.num_layers:
+        emit(phase=phase + "_bf16_vs_f32",
+             rel_l2=rel(plain["bfloat16"], plain["float32"]))
     del m32
     torch.cuda.empty_cache()
 
@@ -2565,25 +2686,27 @@ def decode_idle_share(cfg, model, cache, tok, pos, phase):
     return rec
 
 
-def serve_traffic(cfg, model, counts, reset, phase):
+def serve_traffic(cfg, model, counts, reset, phase, prompt_len=PROMPT_LEN,
+                  cache_len=None):
     """The main path of a serving slice: ``generate`` on PROMPTS prompts
-    of PROMPT_LEN random tokens with NEW_TOKENS new ones, then
-    SERVE_REQUESTS such requests through SERVE_SLOTS ``ServeLoop`` slots.
-    The kernel counts are set to 0 just before and read just after.
-    Checks the static batch's shape and the first wave's tokens; returns
-    (prompts, launches, prefills, decode steps)."""
+    of ``prompt_len`` random tokens with NEW_TOKENS new ones, then
+    SERVE_REQUESTS such requests through SERVE_SLOTS ``ServeLoop`` slots
+    (``cache_len``, by default prompt_len + NEW_TOKENS).  The kernel
+    counts are set to 0 just before and read just after.  Checks the
+    static batch's shape and the first wave's tokens; returns (prompts,
+    launches, prefills, decode steps)."""
     import numpy as np
     import torch
     from repro_torch.serve import engine as serve
     rng = np.random.default_rng(0)
     prompts = rng.integers(2, cfg.vocab_size,
-                           (SERVE_REQUESTS, PROMPT_LEN)).astype(np.int32)
+                           (SERVE_REQUESTS, prompt_len)).astype(np.int32)
     reset()  # the main path starts here
     t0 = time.perf_counter()
     static = serve.generate(cfg, model, prompts[:PROMPTS], NEW_TOKENS)
     static_wall = time.perf_counter() - t0
     sl = serve.ServeLoop(cfg, model, num_slots=SERVE_SLOTS,
-                         cache_len=PROMPT_LEN + NEW_TOKENS)
+                         cache_len=cache_len or prompt_len + NEW_TOKENS)
     reqs = [serve.Request(rid=i, prompt=prompts[i], max_new=NEW_TOKENS)
             for i in range(SERVE_REQUESTS)]
     for r in reqs:
@@ -2598,8 +2721,8 @@ def serve_traffic(cfg, model, counts, reset, phase):
     emit(phase=phase, static_wall_s=static_wall,
          serve_loop_wall_s=loop_wall, serve_loop_steps=steps,
          prefills=prefills, decode_steps=decode_steps, **launches)
-    if static.shape != (PROMPTS, PROMPT_LEN + NEW_TOKENS) or \
-            not (static[:, :PROMPT_LEN] == prompts[:PROMPTS]).all():
+    if static.shape != (PROMPTS, prompt_len + NEW_TOKENS) or \
+            not (static[:, :prompt_len] == prompts[:PROMPTS]).all():
         raise AssertionError(f"generate returned {static.shape}")
     flips = check_tokens(cfg, model, prompts, static, reqs)
     emit(phase=phase + "_tokens", ok=True, flips=len(flips),
@@ -2607,15 +2730,41 @@ def serve_traffic(cfg, model, counts, reset, phase):
     return prompts, launches, prefills, decode_steps
 
 
+def device_split(events, split):
+    """Device ms and launches of each group of kernels whose name holds
+    one of the group's words (any case), and of the rest."""
+    from torch.autograd import DeviceType
+    out = {name: {"ms": 0.0, "launches": 0} for name in [*split, "rest"]}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        key = e.key.lower()
+        name = next((n for n, words in split.items()
+                     if any(w in key for w in words)), "rest")
+        out[name]["ms"] += e.self_device_time_total / 1e3
+        out[name]["launches"] += e.count
+    return out
+
+
+# a prefill's device time by kernel: cuBLAS's GEMMs, the flash and WKV6
+# kernels, the RG-LRU time loop (one addcmul a step) and the rest
+PREFILL_SPLIT = {"gemm": ("gemm", "nvjet", "xmma", "cutlass"),
+                 "flash": ("flash_attention",), "wkv6": ("wkv6",),
+                 "rg_lru_loop": ("addcmul",)}
+
+
 def serving_metrics(cfg, model, toks, counts, phase):
     """Prefill tokens/s, TTFT, decode ms/step and tokens/s, the kernel's
     launches per decode step, and the device idle share over a few decode
     steps (host clock, synchronised).  TTFT: the prefill of the wave and
     its first tokens on the host, which every request of the wave waits
-    for."""
+    for.  The profiled prefill's device time and launches by kernel
+    group (``device_split`` by PREFILL_SPLIT)."""
     import torch
     from repro_torch.models import lm
-    cache_len = PROMPT_LEN + NEW_TOKENS
+    prompts, prompt_len = toks.shape
+    cache_len = prompt_len + NEW_TOKENS
     wall, events = profiled(
         lambda: lm.prefill(cfg, model, toks, cache_len=cache_len),
         warmup=1)
@@ -2623,7 +2772,7 @@ def serving_metrics(cfg, model, toks, counts, phase):
     emit(phase=phase + "_prefill_profile", wall_s=wall,
          device_busy_s=busy if busy > 0 else "not measured",
          idle_share=1 - busy / wall if busy > 0 else "not measured",
-         top=top)
+         top=top, split=device_split(events, PREFILL_SPLIT))
     prefill_s, ttft_s = [], []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -2636,7 +2785,7 @@ def serving_metrics(cfg, model, toks, counts, phase):
         prefill_s.append(t1 - t0)
         ttft_s.append(time.perf_counter() - t0)
     steps_t = []
-    pos = PROMPT_LEN
+    pos = prompt_len
     before = dict(counts)
     for i in range(NEW_TOKENS - 1 - DECODE_PROFILE_STEPS):
         t0 = time.perf_counter()
@@ -2649,15 +2798,15 @@ def serving_metrics(cfg, model, toks, counts, phase):
     prof = decode_idle_share(cfg, model, cache, tok, pos + len(steps_t),
                              phase + "_decode_profile")
     rec = dict(
-        prefill_tokens_per_s=PROMPTS * PROMPT_LEN / statistics.median(
+        prefill_tokens_per_s=prompts * prompt_len / statistics.median(
             prefill_s),
         prefill_s=statistics.median(prefill_s),
         ttft_s=statistics.median(ttft_s),
         decode_ms_per_step=step_ms,
-        decode_tokens_per_s=PROMPTS / step_ms * 1e3,
+        decode_tokens_per_s=prompts / step_ms * 1e3,
         kernel_launches_per_decode_step=per_step,
-        decode_idle_share=prof["idle_share"], batch=PROMPTS,
-        prompt_len=PROMPT_LEN, peak_gb=torch.cuda.max_memory_allocated()
+        decode_idle_share=prof["idle_share"], batch=prompts,
+        prompt_len=prompt_len, peak_gb=torch.cuda.max_memory_allocated()
         / 1e9)
     emit(phase=phase, **rec)
     return rec
@@ -2701,47 +2850,57 @@ def lm_path():
     return launches, rec
 
 
-def time_attention(gen, errs_max, launches):
-    """The kernels at the two prefill shapes, bf16 on the tensor cores:
-    granite-3-2b (B 4, H 32, Hkv 8, S 1024, D 64) and a chatglm3-like one
-    (Hkv 2, D 128); then the f32 route (CUDA cores) at granite's.  Each
-    with its call time (CUDA events around a call, median of 20), its
-    device time (the profiler), its bound, the plain version's time and
-    SDPA's call and device times (the yardstick, never called by the
-    port).  Returns the kernels line entry, at granite's shape."""
+def time_attention_case(gen, what, b, h, hkv, s, d, dt, window=None):
+    """One kernel at one causal shape: its call time (CUDA events around a
+    call, median of 20), its device time (the profiler), its bound (the
+    kept pairs under the window), the plain version's time and SDPA's call
+    and device times (the yardstick, never called by the port) with the
+    kernel SDPA ran.  Emits and returns the row."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref as tref
+    q, k, v = _qkv(gen, b, h, hkv, s, d, dt)
+    kernel = lambda: fa.flash_attention(q, k, v, window=window)  # noqa: E731
+    sdpa = sdpa_call(q, k, v, window)
+    ms = cuda_ms(kernel, reps=20)
+    device_ms = kernel_device_ms(kernel)
+    plain = cuda_ms(lambda: tref.attention_ref(q, k, v, window=window),
+                    reps=5)
+    lib = cuda_ms(sdpa, reps=20)
+    lib_device = kernel_device_ms(sdpa)
+    measured = isinstance(device_ms, float) and isinstance(lib_device, float)
+    torch.cuda.synchronize()
+    sdpa_err = float((sdpa().float() - kernel().float()).abs().max())
+    bound_ms, bound_by, n_ops, n_bytes = attention_bound(
+        b, h, hkv, s, d, dt, True, window)
+    row = dict(ms=ms, device_ms=device_ms, plain_ms=plain, library_ms=lib,
+               library_device_ms=lib_device, bound_ms=bound_ms,
+               bound_by=bound_by)
+    emit(phase="time", kernel="flash_attention", case=what,
+         route=fa.route(dt, d), shape=[b, h, hkv, s, d],
+         dtype=str(dt).split(".")[-1], window=window,
+         sdpa_max_abs_diff=sdpa_err, sdpa_kernel=top_kernel(sdpa),
+         flops=n_ops, bytes=n_bytes,
+         tflops=n_ops / device_ms / 1e9 if measured else "not measured",
+         device_vs_library=device_ms / lib_device if measured
+         else "not measured", **row)
+    return row
+
+
+def time_attention(gen, errs_max, launches):
+    """The kernels at the two prefill shapes, bf16 on the tensor cores:
+    granite-3-2b (B 4, H 32, Hkv 8, S 1024, D 64) and a chatglm3-like one
+    (Hkv 2, D 128); then the f32 route (CUDA cores) at granite's.  Returns
+    the kernels line entry, at granite's shape."""
+    import torch
     rows = {}
     for what, hkv, d, dt in (("granite", 8, 64, torch.bfloat16),
                              ("chatglm3-like", 2, 128, torch.bfloat16),
                              ("granite f32", 8, 64, torch.float32)):
-        b, h, s = PROMPTS, 32, PROMPT_LEN
-        q, k, v = _qkv(gen, b, h, hkv, s, d, dt)
-        kernel = lambda: fa.flash_attention(q, k, v)  # noqa: E731
-        sdpa = sdpa_call(q, k, v)
-        ms = cuda_ms(kernel, reps=20)
-        device_ms = kernel_device_ms(kernel)
-        plain = cuda_ms(lambda: tref.attention_ref(q, k, v), reps=5)
-        lib = cuda_ms(sdpa, reps=20)
-        lib_device = kernel_device_ms(sdpa)
-        measured = isinstance(device_ms, float) and \
-            isinstance(lib_device, float)
-        torch.cuda.synchronize()
-        sdpa_err = float((sdpa().float() - kernel().float()).abs().max())
-        bound_ms, bound_by, n_ops, n_bytes = attention_bound(
-            b, h, hkv, s, d, dt, True, None)
-        rows[what] = dict(ms=ms, device_ms=device_ms, plain_ms=plain,
-                          library_ms=lib, library_device_ms=lib_device,
-                          bound_ms=bound_ms, bound_by=bound_by)
-        emit(phase="time", kernel="flash_attention", case=what,
-             route=fa.route(dt, d), shape=[b, h, hkv, s, d],
-             dtype=str(dt).split(".")[-1], sdpa_max_abs_diff=sdpa_err,
-             flops=n_ops, bytes=n_bytes,
-             tflops=n_ops / device_ms / 1e9 if measured else "not measured",
-             device_vs_library=device_ms / lib_device if measured
-             else "not measured", **rows[what])
-    return {"name": "flash_attention", "route": "cuda",
+        rows[what] = time_attention_case(gen, what, PROMPTS, 32, hkv,
+                                         PROMPT_LEN, d, dt)
+    return {"name": "flash_attention", "path": "tensor_cores",
+            "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
             "replaces": "src/repro/kernels/flash_attention.py:121",
             "launches": launches["flash_attention"],
@@ -3292,6 +3451,131 @@ def time_wkv6(gen, errs_max, launches):
     return rows
 
 
+# -- Griffin serving: the CUDA-core flash kernel at D 256 and recurrentgemma-9b
+
+GRIFFIN_ARCH = "recurrentgemma-9b"
+# 4 prompts of 3072 tokens, so the 2048-key window masks every query past
+# 2047 and each prefill's ring buffer wraps; 32 new tokens each
+GRIFFIN_PROMPT_LEN, GRIFFIN_CACHE_LEN = 3072, 3200
+GRIFFIN_WINDOW = 2048
+GRIFFIN_PARAM_COUNT = 9_396_297_728   # configs' param_count()
+ATTN_ERR = {}   # attention_vs_plain's largest |kernel − plain| by route
+
+
+def griffin_path():
+    """Serve recurrentgemma-9b at full width and depth: static generate and
+    ServeLoop with every prefill's local-attention layers through the
+    CUDA-core flash kernel (none at decode), then the logit gate and the
+    serving metrics with the prefill's device time split."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+
+    cfg = get_config(GRIFFIN_ARCH)
+    if LM_REDUCED:
+        cfg = cfg.reduced()
+    kinds = lm.layer_kinds(cfg)
+    n_local, n_rec = kinds.count("local_attn"), kinds.count("recurrent")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(3),
+                    device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    emit(phase="griffin_init", arch=cfg.name, layers=cfg.num_layers,
+         local_attn_layers=n_local, recurrent_layers=n_rec, params=n_params,
+         param_count=cfg.param_count(),
+         weight_gb=sum(p.numel() * p.element_size()
+                       for p in model.parameters()) / 1e9,
+         seconds=time.perf_counter() - t0)
+    # param_count counts three lru_dim vectors a recurrent layer (the
+    # block holds two, conv_b and lam) and leaves out ln_f
+    if n_params != cfg.param_count() - n_rec * cfg.lru_dim + cfg.d_model or (
+            not LM_REDUCED and (cfg.param_count(), cfg.num_layers)
+            != (GRIFFIN_PARAM_COUNT, 38)):
+        raise AssertionError(f"{cfg.name}: {n_params} parameters, "
+                             f"param_count {cfg.param_count()}")
+
+    prompts, launches, prefills, _ = serve_traffic(
+        cfg, model, fa.launch_counts, fa.reset_launch_counts,
+        "griffin_main_path", prompt_len=GRIFFIN_PROMPT_LEN,
+        cache_len=GRIFFIN_CACHE_LEN)
+    path = fa.route(getattr(torch, cfg.compute_dtype), cfg.head_dim)
+    want = {"flash_attention": n_local * prefills,
+            "flash_attention_cuda_cores": n_local * prefills,
+            "flash_attention_tensor_cores": 0}
+    if path != "cuda_cores" or launches != want:
+        raise AssertionError(f"flash launches {launches} on {path}, "
+                             f"expected {want}: {n_local} local layers x "
+                             f"{prefills} prefills, none at decode")
+
+    toks = torch.as_tensor(prompts[:PROMPTS], dtype=torch.long,
+                           device=DEVICE)
+    check_prefill_logits(cfg, model, toks, phase="griffin_logits")
+    rec = serving_metrics(cfg, model, toks, fa.launch_counts,
+                          "griffin_serving")
+    emit(phase="griffin_rg_lru_loop",
+         launches_per_prefill=n_rec * GRIFFIN_PROMPT_LEN,
+         launches_per_decode_step=n_rec, recurrent_layers=n_rec)
+    return launches, rec
+
+
+def griffin_phases():
+    """Slice 4: recurrentgemma-9b served at full width and depth, then the
+    CUDA-core flash kernel's times at its prefill shape (D 256, window
+    2048) and at nemotron-4-340b's D 192; returns the kernels line entry
+    of the CUDA-core route.  The flash kernel against its plain version
+    at these shapes runs in ``attention_vs_plain``."""
+    import gc
+    import torch
+    launches, _ = griffin_path()
+    gc.collect()
+    torch.cuda.empty_cache()  # the model's 18.8 GB, before the timings
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    row = time_attention_case(gen, "recurrentgemma", PROMPTS, 16, 1,
+                              GRIFFIN_PROMPT_LEN, 256, torch.bfloat16,
+                              GRIFFIN_WINDOW)
+    time_attention_case(gen, "nemotron D=192", 1, 96, 8, 1024, 192,
+                        torch.bfloat16)
+    return [{"name": "flash_attention", "path": "cuda_cores",
+             "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:121",
+             "launches": launches["flash_attention_cuda_cores"],
+             "max_abs_err": ATTN_ERR["cuda_cores"], **row}]
+
+
+def ptxas_kernels(log, name_of) -> dict:
+    """Registers and spill bytes from a ptxas log for each entry function
+    that ``name_of(mangled name)`` names (None: left out)."""
+    import re
+    kernels, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = name_of(m.group(1))
+            if name:
+                kernels[name] = {"registers": None, "spill_bytes": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            kernels[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernels[name]["registers"] = int(m.group(1))
+    return kernels
+
+
+def flash_kernel_name(mangled):
+    """The CUDA-core flash kernel's dtype (f: f32, 13__nv_bfloat16: bf16)
+    and padded head dim DP, from its mangled name."""
+    import re
+    k = re.search(r"flash_attention_kernelI(\w+?)Li(\d+)E", mangled)
+    return None if k is None else f"{k.group(1)},{k.group(2)}"
+
+
 def build_all():
     """The six libraries, one nvcc each, started together; then the
     compacted SpMV library's registers and spills, and the ptxas report
@@ -3327,6 +3611,10 @@ def build_all():
          **compact_ptxas(log))
     tensor_core_report(fa.LIBRARIES["tensor_cores"].path(), "HGMMA")
     tensor_core_report(twkv.LIBRARY_CHUNKED.path(), "HMMA")
+    log = fa.LIBRARIES["cuda_cores"].path().with_suffix(".log").read_text()
+    emit(phase="build_cuda_core_flash",
+         library=fa.LIBRARIES["cuda_cores"].path().name,
+         kernels=ptxas_kernels(log, flash_kernel_name))
 
 
 def compact_ptxas(log) -> dict:
@@ -3339,26 +3627,14 @@ def compact_ptxas(log) -> dict:
     registers and the spill bytes per bound, ``spills`` every kernel
     that spills."""
     import re
-    kernels, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            k = re.search(r"(bsr_spmv(?:_fused)?_compact_kernel)ILi(\d+)ELi"
-                          r"(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?E", m.group(1))
-            name = None if k is None else (
-                f"{k.group(1)}<{k.group(2)},{k.group(3)},"
-                f"{k.group(4) or 256}"
-                f"{'' if k.group(5) is None else ',' + k.group(5)}>")
-            if name:
-                kernels[name] = {"registers": None, "spill_bytes": 0}
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and name:
-            kernels[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            kernels[name]["registers"] = int(m.group(1))
+
+    def name_of(mangled):
+        k = re.search(r"(bsr_spmv(?:_fused)?_compact_kernel)ILi(\d+)ELi"
+                      r"(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?E", mangled)
+        return None if k is None else (
+            f"{k.group(1)}<{k.group(2)},{k.group(3)},{k.group(4) or 256}"
+            f"{'' if k.group(5) is None else ',' + k.group(5)}>")
+    kernels = ptxas_kernels(log, name_of)
     by_bound = {}
     for k, v in kernels.items():
         bound = k.split(",")[2].rstrip(">")
@@ -3469,8 +3745,9 @@ def lm_phases():
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     attn_err = attention_vs_plain(gen)
+    ATTN_ERR.update(attn_err)
     launches, _ = lm_path()
-    kernels = [time_attention(gen, attn_err, launches)]
+    kernels = [time_attention(gen, attn_err["tensor_cores"], launches)]
     gc.collect()
     torch.cuda.empty_cache()  # granite's weights, before the RWKV phases
     emit(phase="lm_freed", device_gb=torch.cuda.memory_allocated() / 1e9)
@@ -3480,13 +3757,19 @@ def lm_phases():
 def rwkv_phases():
     """Slice 3: both WKV6 kernels against their plain versions,
     rwkv6-1.6b served at full width and depth, the kernels' times;
-    returns their kernels line entries."""
+    returns their kernels line entries.  Frees the model before
+    returning."""
+    import gc
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     err = wkv6_vs_plain(gen)
     chunked_err = wkv6_chunked_vs_plain(gen)
     launches, _ = rwkv_path()
-    return time_wkv6(gen, (err, chunked_err), launches)
+    kernels = time_wkv6(gen, (err, chunked_err), launches)
+    gc.collect()
+    torch.cuda.empty_cache()  # rwkv6's weights, before the Griffin phases
+    emit(phase="rwkv_freed", device_gb=torch.cuda.memory_allocated() / 1e9)
+    return kernels
 
 
 def setup():
@@ -3511,13 +3794,15 @@ def main() -> int:
         return 2
     import repro_torch  # noqa: F401  (the port, not JAX; fails outside)
     setup()
-    # 2. build; 3.-5. the graph engine; 6.-8. LM serving; 9.-11. RWKV
+    # 2. build; 3.-5. the graph engine; 6.-8. LM serving; 9.-11. RWKV;
+    # 12.-13. Griffin
     build_all()
     kernels = graph_phases()
     kernels += lm_phases()
     kernels += rwkv_phases()
+    kernels += griffin_phases()
 
-    # 12. the card, the kernels line, and the result
+    # 14. the card, the kernels line, and the result
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@
 // Layout.  q (B, H, S, D), k and v (B, Hkv, S, D), o (B, H, S, D), each in
 // bf16 or f32 (one dtype for all four), addressed through element strides
 // for b, h and s; d is contiguous.  Hkv divides H: query head h reads kv
-// head h / (H / Hkv), so GQA needs no repeated copy of k and v.  D <= 128.
+// head h / (H / Hkv), so GQA needs no repeated copy of k and v.  D <= 256:
+// the kernel is built for padded head dims DP of 32, 64, 128, 192 and 256.
 //
 // Work split.  One thread block per (q-tile of 64 rows, b*H + h):
 // blockIdx.x = q-tile (heaviest causal tiles first), blockIdx.y = b*H + h.
@@ -16,8 +17,9 @@
 // TPU's sequential `ki` grid axis, and the running max, denominator and
 // output accumulator stay in registers (f32) across it.  256 threads = 8
 // warps; warp w owns query rows 8w..8w+7 of the tile; lane t owns keys t and
-// t+32 of each key tile for the scores, and output dims t, t+32, t+64, t+96
-// (those below D) for the accumulator.  Q (scaled), K and V tiles are
+// t+32 of each key tile for the scores, and output dims t + 32u for u <
+// DP / 32 (those below D) for the accumulator: 8 x DP / 32 f32 a thread,
+// 64 at DP 256.  Q (scaled), K and V tiles are
 // staged in shared memory as f32 (upcast once at load), rows of Q and K
 // padded by 4 floats so that the lanes' float4 reads of 32 different K rows
 // hit distinct banks; each warp writes its rows of P to shared memory and
@@ -43,7 +45,16 @@
 // the tensor cores (mma.sync / wgmma); the loads are plain per-element loads
 // with no cp.async or TMA pipeline, so each tile's load waits for the
 // previous tile's arithmetic; the f32 tiles take 67 KB of shared memory at
-// D = 64 (117 KB at D = 128), which limits a multiprocessor to 3 blocks (1).
+// D = 64 (117 KB at D = 128), which limits a multiprocessor to 3 blocks (1),
+// and 166 KB at DP 192 and 215,040 B at DP 256 (of the 232,448 B a block
+// may opt into), so one block of 8 warps a multiprocessor there.
+//
+// Head dims 192 and 256 (nemotron-4-340b; recurrentgemma-9b's local MQA
+// with a 2048-key window).  One recurrentgemma prefill wave (B 4, H 16,
+// Hkv 1, S 3072, D 256, window 2048) keeps 4,195,328 (query, key) pairs a
+// head: 4*16 * 4,195,328 * 4*256 = 275 GFLOP, 0.278 ms at the bf16
+// tensor-core peak and at least 4.1 ms at the CUDA cores' f32 peak; the
+// window's left edge skips the key tiles no row of a q-tile can see.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -251,7 +262,9 @@ template <typename T>
 int dispatch_d(const Args& a, int B, cudaStream_t stream) {
   if (a.D <= 32) return launch<T, 32>(a, B, stream);
   if (a.D <= 64) return launch<T, 64>(a, B, stream);
-  return launch<T, 128>(a, B, stream);
+  if (a.D <= 128) return launch<T, 128>(a, B, stream);
+  if (a.D <= 192) return launch<T, 192>(a, B, stream);
+  return launch<T, 256>(a, B, stream);
 }
 
 }  // namespace
@@ -266,7 +279,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, const long long* strides, int B, int H,
                            int Hkv, int S, int D, int causal, int window,
                            float scale, int dtype, void* stream) {
-  if (D < 1 || D > 128 || Hkv < 1 || H % Hkv != 0 || dtype < 0 || dtype > 1)
+  if (D < 1 || D > 256 || Hkv < 1 || H % Hkv != 0 || dtype < 0 || dtype > 1)
     return -1;
   if (B == 0 || H == 0 || S == 0) return 0;
   Args a;

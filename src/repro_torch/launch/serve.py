@@ -3,12 +3,13 @@ reduced config of an architecture, with random weights from a seed.
 
     python -m repro_torch.launch.serve --arch granite-3-2b --mode static
     python -m repro_torch.launch.serve --arch rwkv6-1.6b
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b
     python -m repro_torch.launch.serve --device cpu       # without a card
 
 Full-width serving goes through the library: ``serve.engine.generate``
 and ``serve.engine.ServeLoop`` on ``models.lm.init(cfg)`` of the full
-config (``chip_smoke.py`` serves granite-3-2b and rwkv6-1.6b that way on
-the card).
+config (``chip_smoke.py`` serves granite-3-2b, rwkv6-1.6b and
+recurrentgemma-9b that way on the card).
 """
 
 from __future__ import annotations

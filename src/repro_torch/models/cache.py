@@ -1,11 +1,16 @@
-"""Decode-state containers: the KV cache of the GQA attention block and
-the recurrent state of the RWKV-6 block.
+"""Decode-state containers: the KV cache of the GQA attention block, the
+ring-buffered cache of the local attention block, and the recurrent
+states of the RWKV-6 and RG-LRU blocks.
 
-The JAX package's ``models/cache.py`` for block kinds ``attn`` and
-``rwkv``.  The other caches (ring-buffered local attention, MLA latent,
-cross-attention, RG-LRU state) come with their blocks (``ROADMAP.md``).
-Each leaf has its own dtype: the KV cache takes the caller's, the RWKV
-state is f32 whatever the caller passes, as in the JAX package.
+The JAX package's ``models/cache.py`` for block kinds ``attn``,
+``rwkv``, ``recurrent`` and ``local_attn``.  The other caches (MLA
+latent, cross-attention) come with their blocks (``ROADMAP.md``).  Each
+leaf has its own dtype: the KV caches take the caller's, the recurrent
+states are f32 whatever the caller passes, as in the JAX package.
+
+Local-attention caches are ring buffers of size ``window`` with an
+explicit ``pos_of_slot`` time map (-1 for an empty slot): O(window)
+memory whatever the context length.
 """
 
 from __future__ import annotations
@@ -13,9 +18,9 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
-from . import rwkv
+from . import griffin, rwkv
 
-PORTED_KINDS = ("attn", "rwkv")
+PORTED_KINDS = ("attn", "rwkv", "recurrent", "local_attn")
 
 
 def check_ported(cfg: ModelConfig, kind: str) -> None:
@@ -26,8 +31,8 @@ def check_ported(cfg: ModelConfig, kind: str) -> None:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (ROADMAP.md, queue 1: "
             f"LM stack, the rest); the port builds {PORTED_KINDS}")
-    if kind == "attn" and (cfg.attn_kind != "gqa"
-                           or cfg.pos_embedding == "learned"):
+    if kind in ("attn", "local_attn") and (
+            cfg.attn_kind != "gqa" or cfg.pos_embedding == "learned"):
         raise NotImplementedError(
             f"attention {cfg.attn_kind!r} with {cfg.pos_embedding!r} "
             "positions is not ported yet (ROADMAP.md, queue 1: LM stack, "
@@ -46,11 +51,31 @@ def attn_cache_axes():
             "v": "batch kv_seq kv_heads head_dim"}
 
 
+def local_cache_init(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                     device=None):
+    w, kv, hd = cfg.window, cfg.num_kv_heads, cfg.head_dim
+    c = {n: torch.zeros((batch, w, kv, hd), dtype=dtype, device=device)
+         for n in ("k", "v")}
+    c["pos_of_slot"] = torch.full((batch, w), -1, dtype=torch.int32,
+                                  device=device)
+    return c
+
+
+def local_cache_axes():
+    return {"k": "batch . kv_heads head_dim",
+            "v": "batch . kv_heads head_dim",
+            "pos_of_slot": "batch ."}
+
+
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int,
                      cache_len: int, dtype=torch.bfloat16, device=None):
     check_ported(cfg, kind)
     if kind == "rwkv":
         return rwkv.rwkv_state_init(cfg, batch, device)
+    if kind == "recurrent":
+        return griffin.recurrent_state_init(cfg, batch, device)
+    if kind == "local_attn":
+        return local_cache_init(cfg, batch, dtype, device)
     return attn_cache_init(cfg, batch, cache_len, dtype, device)
 
 
@@ -58,4 +83,8 @@ def block_cache_axes(cfg: ModelConfig, kind: str):
     check_ported(cfg, kind)
     if kind == "rwkv":
         return rwkv.rwkv_state_axes()
+    if kind == "recurrent":
+        return griffin.recurrent_state_axes()
+    if kind == "local_attn":
+        return local_cache_axes()
     return attn_cache_axes()

@@ -7,7 +7,8 @@ per repeat) and whose remainder layers are separate (``p["rem"]``).
 port's ``LM``, which then computes what the JAX model computes: each
 leaf is cast once to the dtype of its port parameter, so matrices to the
 compute dtype (the JAX package casts them at every use) and norm scales,
-the RWKV block's f32 leaves and its ``dec_b`` kept in f32.
+the RWKV block's f32 leaves and its ``dec_b``, and the RG-LRU block's
+``conv_b`` and ``lam`` kept in f32.
 ``params_to_jax`` is its inverse.
 """
 
@@ -33,6 +34,8 @@ _BLOCK_LEAVES = {
     **{f"rwkv.{n}": ("rwkv", n) for n in (
         "mu", "ddl_a", "ddl_b", "wr", "wk", "wv", "wg", "wo", "w0",
         "dec_a", "dec_b", "u", "ln_x", "mu_c", "ck", "cr", "cv")},
+    **{f"rec.{n}": ("rec", n) for n in (
+        "w_x", "w_y", "conv_w", "conv_b", "wr", "wi", "lam", "w_out")},
 }
 _TOP_LEAVES = {"embed": ("embed",), "head": ("head",),
                "ln_f.scale": ("ln_f", "scale"),

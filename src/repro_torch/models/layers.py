@@ -10,9 +10,10 @@ port holds every matrix in the compute dtype, cast once at load: the same
 operands at half the bytes in bf16.  Norm scales stay f32, as
 ``norm_apply`` uses them.
 
-Not ported here (``ROADMAP.md``): MLA, cross-attention, the local
-(ring-buffer) attention block and ``_decode_attend_flash``, which needs a
-mesh.
+The local (ring-buffer) attention block's prefill and decode live in
+``lm.py``, as in the JAX package, on ``_self_attend`` and
+``_decode_attend_local`` from here.  Not ported (``ROADMAP.md``): MLA,
+cross-attention and ``_decode_attend_flash``, which needs a mesh.
 """
 
 from __future__ import annotations
@@ -200,19 +201,27 @@ def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
                                    new[:, 0].to(cache.dtype))
 
 
-def _decode_attend_local(q, k, v, pos, window):
+def _decode_attend_local(q, k, v, pos, window, kpos=None):
     """q (B, 1, H, hd); k, v (B, S, KV, hd); masked softmax over the
     cached length.  Query head h reads kv head h // (H / KV): the heads
-    are grouped, not repeated, which computes the same products."""
+    are grouped, not repeated, which computes the same products.
+
+    ``kpos`` (B, S): the time of each cache row (a ring buffer's
+    ``pos_of_slot``, -1 for an empty slot, which never attends); by
+    default row i holds time i."""
     b, _, h, hd = q.shape
     kvh = k.shape[2]
     cd = torch.promote_types(q.dtype, k.dtype)
     qg = q.reshape(b, kvh, h // kvh, hd).to(cd)
     scale = 1.0 / (hd ** 0.5)
     s = torch.einsum("bgrk,bsgk->bgrs", qg, k.to(cd)).float() * scale
-    kpos = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
     posb = pos[:, None, None, None]
-    mask = kpos <= posb
+    if kpos is None:
+        kpos = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+        mask = kpos <= posb
+    else:
+        kpos = kpos[:, None, None, :]
+        mask = (kpos >= 0) & (kpos <= posb)
     if window is not None:
         mask &= kpos > posb - window
     s = s.masked_fill(~mask, -torch.inf)

@@ -1,12 +1,17 @@
 """The decoder stack: init, forward, prefill and one-token decode.
 
 The JAX package's ``models/lm.py`` in PyTorch for the dense GQA families
-(block kind ``attn``: granite-3-2b, chatglm3-6b, nemotron-4-340b) and
-RWKV-6 (block kind ``rwkv``: rwkv6-1.6b).  The other block kinds
-(``moe``, ``recurrent``, ``local_attn``, ``cross_attn``, ``decoder``),
-MLA, learned positions and the encoder are not ported yet: building a
-config that needs them raises ``NotImplementedError`` naming
-``ROADMAP.md``.
+(block kind ``attn``: granite-3-2b, chatglm3-6b, nemotron-4-340b),
+RWKV-6 (block kind ``rwkv``: rwkv6-1.6b) and the Griffin hybrid (block
+kinds ``recurrent`` and ``local_attn``: recurrentgemma-9b).  The other
+block kinds (``moe``, ``cross_attn``, ``decoder``), MLA, learned
+positions and the encoder are not ported yet: building a config that
+needs them raises ``NotImplementedError`` naming ``ROADMAP.md``.
+
+A ``local_attn`` prefill runs the windowed attention through the flash
+kernel and keeps the last ``window`` K/V in a ring buffer (slot = time %
+window); its decode step is a masked softmax over the ring in plain
+torch, as the reference computes it in XLA.
 
 The JAX package stacks each superblock position's layers on a leading
 axis and ``lax.scan``s over it; here ``LM.blocks`` holds every layer in
@@ -33,7 +38,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
 from . import cache as cache_lib
-from . import layers, rwkv
+from . import griffin, layers, rwkv
 
 
 def layer_slots(cfg: ModelConfig) -> List[Tuple[str, str, Optional[int]]]:
@@ -54,7 +59,8 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 
 class Block(nn.Module):
-    """``attn``: ln1, attn, ln2, mlp.  ``rwkv``: ln1, rwkv, ln2."""
+    """``attn`` and ``local_attn``: ln1, attn, ln2, mlp.  ``rwkv``: ln1,
+    rwkv, ln2.  ``recurrent``: ln1, rec, ln2, mlp."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None):
         super().__init__()
@@ -63,16 +69,19 @@ class Block(nn.Module):
         if kind == "rwkv":
             self.rwkv = rwkv.RWKV(cfg, device=device)
             self.ln2 = layers.norm_init(cfg, device=device)
+            return
+        if kind == "recurrent":
+            self.rec = griffin.Recurrent(cfg, device=device)
         else:
             self.attn = layers.attn_init(cfg, device=device)
-            self.ln2 = layers.norm_init(cfg, device=device)
-            self.mlp = layers.mlp_init(cfg, device=device)
+        self.ln2 = layers.norm_init(cfg, device=device)
+        self.mlp = layers.mlp_init(cfg, device=device)
 
 
 class LM(nn.Module):
     """embed (V, d), head (d, V) unless tied, ln_f, and one ``Block`` per
     layer.  Matrices in ``cfg.compute_dtype``, norm scales and the RWKV
-    block's f32 leaves in f32."""
+    and RG-LRU blocks' f32 leaves in f32."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -114,9 +123,13 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         if blk.kind == "rwkv":
             _fill_rwkv(cfg, blk.rwkv, gen)
             continue
-        for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.mlp.wi):
-            _fill(w, d, gen)
-        _fill(blk.attn.wo, cfg.num_heads * hd, gen)
+        if blk.kind == "recurrent":
+            _fill_recurrent(cfg, blk.rec, gen)
+            _fill(blk.mlp.wi, d, gen)
+        else:
+            for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.mlp.wi):
+                _fill(w, d, gen)
+            _fill(blk.attn.wo, cfg.num_heads * hd, gen)
         if cfg.mlp_kind == "swiglu":
             _fill(blk.mlp.wg, d, gen)
         _fill(blk.mlp.wo, cfg.d_ff, gen)
@@ -132,6 +145,17 @@ def _fill_rwkv(cfg: ModelConfig, p: rwkv.RWKV, gen) -> None:
     _fill(p.ddl_b, cfg.ddlerp_rank, gen)
     _fill(p.dec_b, cfg.decay_rank, gen)
     _fill(p.cv, cfg.d_ff, gen)
+
+
+def _fill_recurrent(cfg: ModelConfig, p: griffin.Recurrent, gen) -> None:
+    """The matrices with the JAX ``recurrent_init``'s fan-ins; ``conv_b``
+    and ``lam`` keep the values ``griffin.Recurrent`` gave them."""
+    d, ld = cfg.d_model, cfg.lru_dim
+    _fill(p.w_x, d, gen)
+    _fill(p.w_y, d, gen)
+    _fill(p.conv_w, cfg.conv_width, gen)
+    for w in (p.wr, p.wi, p.w_out):
+        _fill(w, ld, gen)
 
 
 # ---------------------------------------------------------------------------
@@ -152,41 +176,102 @@ def _rwkv_block(cfg: ModelConfig, p: Block, x, c):
     return x + cm, c
 
 
-def block_apply(cfg: ModelConfig, p: Block, x, *, positions):
-    """Full-sequence forward of one block (an RWKV block starts from the
-    zero state, as in the JAX package)."""
-    if p.kind == "rwkv":
-        state = rwkv.rwkv_state_init(cfg, x.shape[0], device=x.device)
-        return _rwkv_block(cfg, p, x, state)[0]
+def _recurrent_block(cfg: ModelConfig, p: Block, x, c):
+    """The RG-LRU branch from the state ``c`` ({"h", "conv"}, f32), which
+    is overwritten with the new state, then the MLP.  Returns (x, c)."""
     h = layers.norm_apply(cfg, p.ln1, x)
-    x = x + layers.attn_apply(cfg, p.attn, h, positions=positions)
+    ro, st = griffin.recurrent_apply(cfg, p.rec, h, c)
+    c["h"].copy_(st["h"])
+    c["conv"].copy_(st["conv"])
+    return _mlp_half(cfg, p, x + ro), c
+
+
+def _mlp_half(cfg: ModelConfig, p: Block, x):
     h2 = layers.norm_apply(cfg, p.ln2, x)
     return x + layers.mlp_apply(cfg, p.mlp, h2)
 
 
+def block_apply(cfg: ModelConfig, p: Block, x, *, positions):
+    """Full-sequence forward of one block (an RWKV or RG-LRU block starts
+    from the zero state, as in the JAX package)."""
+    if p.kind in ("rwkv", "recurrent"):
+        state = cache_lib.block_cache_init(cfg, p.kind, x.shape[0], 0,
+                                           device=x.device)
+        block = _rwkv_block if p.kind == "rwkv" else _recurrent_block
+        return block(cfg, p, x, state)[0]
+    window = cfg.window if p.kind == "local_attn" else None
+    h = layers.norm_apply(cfg, p.ln1, x)
+    x = x + layers.attn_apply(cfg, p.attn, h, positions=positions,
+                              window=window)
+    return _mlp_half(cfg, p, x)
+
+
 def block_prefill(cfg: ModelConfig, p: Block, x, *, positions, cache):
     """Forward + this block's decode cache, written into ``cache`` (an
-    RWKV block's starts as zeros: its prefill starts from the zero
-    state)."""
+    RWKV or RG-LRU block's starts as zeros: its prefill starts from the
+    zero state; a local block's as an empty ring)."""
     if p.kind == "rwkv":
         return _rwkv_block(cfg, p, x, cache)
+    if p.kind == "recurrent":
+        return _recurrent_block(cfg, p, x, cache)
     h = layers.norm_apply(cfg, p.ln1, x)
-    att, c = layers.attn_prefill(cfg, p.attn, h, positions=positions,
-                                 cache=cache)
-    x = x + att
-    h2 = layers.norm_apply(cfg, p.ln2, x)
-    return x + layers.mlp_apply(cfg, p.mlp, h2), c
+    if p.kind == "local_attn":
+        att, c = _local_prefill(cfg, p.attn, h, positions, cache)
+    else:
+        att, c = layers.attn_prefill(cfg, p.attn, h, positions=positions,
+                                     cache=cache)
+    return _mlp_half(cfg, p, x + att), c
+
+
+def _local_prefill(cfg: ModelConfig, p: layers.Attention, h, positions,
+                   cache):
+    """Windowed attention over the prompt (the flash kernel on the
+    card), then the last min(S, window) K/V written into the ring
+    ``cache`` at slot time % window, their times into ``pos_of_slot``.
+    No (B, S) cache is built."""
+    att, k, v = layers._self_attend(cfg, p, h, positions, cfg.window)
+    s, w = h.shape[1], cfg.window
+    times = torch.arange(max(0, s - w), s, device=h.device)
+    slots = times % w                    # distinct: consecutive times
+    cache["k"][:, slots] = k[:, times].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, times].to(cache["v"].dtype)
+    cache["pos_of_slot"][:, slots] = times.to(torch.int32)
+    return att, cache
+
+
+def _local_decode(cfg: ModelConfig, p: layers.Attention, h, c, pos):
+    """One token against the ring: its K/V written at slot pos % window
+    (in place), then a masked softmax over the slots whose time is >= 0,
+    <= pos and > pos - window."""
+    b = h.shape[0]
+    q, k_new, v_new = (layers._proj(h, w) for w in (p.wq, p.wk, p.wv))
+    if cfg.pos_embedding == "rope":
+        q = layers.apply_rope(q, pos[:, None], cfg.rope_theta,
+                              cfg.rope_fraction)
+        k_new = layers.apply_rope(k_new, pos[:, None], cfg.rope_theta,
+                                  cfg.rope_fraction)
+    slot = pos % cfg.window
+    layers._scatter_time(c["k"], k_new, slot)
+    layers._scatter_time(c["v"], v_new, slot)
+    c["pos_of_slot"][torch.arange(b, device=h.device), slot] = \
+        pos.to(torch.int32)
+    o = layers._decode_attend_local(q, c["k"], c["v"], pos, cfg.window,
+                                    kpos=c["pos_of_slot"])
+    return layers._out(o, p.wo), c
 
 
 def block_decode(cfg: ModelConfig, p: Block, x, c, *, pos):
     """One-token step; updates ``c`` in place.  Returns (x, c)."""
     if p.kind == "rwkv":
         return _rwkv_block(cfg, p, x, c)
+    if p.kind == "recurrent":
+        return _recurrent_block(cfg, p, x, c)
     h = layers.norm_apply(cfg, p.ln1, x)
-    att, c = layers.attn_decode(cfg, p.attn, h, c, pos=pos)
-    x = x + att
-    h2 = layers.norm_apply(cfg, p.ln2, x)
-    return x + layers.mlp_apply(cfg, p.mlp, h2), c
+    if p.kind == "local_attn":
+        att, c = _local_decode(cfg, p.attn, h, c, pos)
+    else:
+        att, c = layers.attn_decode(cfg, p.attn, h, c, pos=pos)
+    return _mlp_half(cfg, p, x + att), c
 
 
 # ---------------------------------------------------------------------------
@@ -225,20 +310,21 @@ def forward(cfg: ModelConfig, model: LM,
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device=None) -> Dict:
     """The JAX package's cache tree, each ``blocks`` leaf stacked on a
-    leading layer axis.  ``dtype`` is the KV cache's; each leaf keeps the
-    dtype ``block_cache_init`` gives it, so the RWKV state stays f32."""
+    leading layer axis.  ``dtype`` is the KV caches'; each leaf keeps the
+    dtype and the value ``block_cache_init`` gives it, so the recurrent
+    states stay f32 and an empty ring's ``pos_of_slot`` is -1."""
     device = resolve_device(device)
 
-    def zeros(kind, stack):
+    def stacked(kind, stack):
         one = cache_lib.block_cache_init(cfg, kind, batch, cache_len,
-                                         dtype, device="meta")
-        return {n: torch.zeros(stack + t.shape, dtype=t.dtype,
-                               device=device) for n, t in one.items()}
+                                         dtype, device=device)
+        return {n: t.expand(stack + t.shape).clone() if stack else t
+                for n, t in one.items()}
 
-    c = {"blocks": {f"b{j}": zeros(kind, (cfg.pattern_repeats,))
+    c = {"blocks": {f"b{j}": stacked(kind, (cfg.pattern_repeats,))
                     for j, kind in enumerate(cfg.block_pattern)}}
     if cfg.remainder_layers:
-        c["rem"] = {f"r{j}": zeros(kind, ())
+        c["rem"] = {f"r{j}": stacked(kind, ())
                     for j, kind in enumerate(cfg.remainder_layers)}
     return c
 
@@ -267,7 +353,8 @@ def layer_caches(cfg: ModelConfig, cache: Dict) -> List[Dict]:
 def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
             cache_len: int):
     """tokens (B, S) → (last-token logits (B, V), cache: the KV cache
-    padded to cache_len in the compute dtype, the RWKV state in f32)."""
+    padded to cache_len and the local rings in the compute dtype, the
+    RWKV and RG-LRU states in f32)."""
     b, s = tokens.shape
     x = _embed(cfg, model, tokens)
     positions = _positions(tokens)

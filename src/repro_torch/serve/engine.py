@@ -10,10 +10,12 @@ cache leaf's "batch" dimension comes from the cache's logical axes
 
 Both run on the device of the model's weights.  On CUDA every prefill
 of a GQA model goes through the hand-written flash-attention kernel, in
-each layer; an RWKV-6 model runs the hand-written WKV6 kernel in each
-layer of every prefill and every decode step.  Its state, unlike a KV
-cache, is f32 whatever the cache dtype: slot surgery copies it without
-rounding.
+each layer (a Griffin model's in each local-attention layer); an RWKV-6
+model runs the hand-written WKV6 kernel in each layer of every prefill
+and every decode step.  The RWKV and RG-LRU states, unlike a KV cache,
+are f32 whatever the cache dtype: slot surgery copies them without
+rounding, and a local layer's ring buffer moves with its ``pos_of_slot``
+map, whose "batch" axis its axes name too.
 Temperature sampling draws from an explicit ``torch.Generator``; it
 cannot reproduce ``jax.random``'s draws.  The frontend stubs of the
 vision and audio families (``extras``) are not ported, since those

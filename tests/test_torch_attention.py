@@ -16,10 +16,10 @@ The tests marked ``cuda`` hold the hand-written CUDA kernels against the
 plain version on the card; they skip without one and need no jax (on the
 card: ``python -m pytest -q -m cuda tests/test_torch_attention.py``).
 ``route`` picks the kernel: bf16 at D 64 and 128 takes the tensor-core
-kernel (``test_cuda_tensor_cores_*``), f32 and the other head dims the
-CUDA-core kernel (``test_cuda_flash_matches_plain`` at D 16, 32 and in
-f32, ``test_cuda_flash_strided_output_layout``); each card test asserts
-that its route's launch count moved.
+kernel (``test_cuda_tensor_cores_*``), f32 and the other head dims up to
+256 the CUDA-core kernel (``test_cuda_flash_matches_plain`` at D 16, 32,
+256 and in f32, ``test_cuda_flash_strided_output_layout``); each card
+test asserts that its route's launch count moved.
 """
 
 import numpy as np
@@ -32,7 +32,7 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 MASKS = [(True, None), (False, None), (True, 64)]
-SHAPES = [(2, 4, 2, 256, 64), (1, 2, 1, 128, 32)]
+SHAPES = [(2, 4, 2, 256, 64), (1, 2, 1, 128, 32), (1, 2, 1, 192, 256)]
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -153,16 +153,18 @@ def test_cpu_tensors_never_launch(rng):
 @pytest.mark.parametrize("dtype,d,want", [
     ("bfloat16", 64, "tensor_cores"), ("bfloat16", 128, "tensor_cores"),
     ("float32", 64, "cuda_cores"), ("float32", 128, "cuda_cores"),
-    ("bfloat16", 32, "cuda_cores"), ("bfloat16", 16, "cuda_cores")])
+    ("bfloat16", 32, "cuda_cores"), ("bfloat16", 16, "cuda_cores"),
+    ("bfloat16", 192, "cuda_cores"), ("bfloat16", 256, "cuda_cores"),
+    ("float32", 256, "cuda_cores")])
 def test_route_picks_kernel_by_dtype_and_head_dim(dtype, d, want):
     assert tfa.route(TORCH_DT[dtype], d) == want
     assert tfa.LIBRARIES[want].source.exists()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_route_rejects_head_dim_over_128(dtype):
-    with pytest.raises(ValueError, match="head dim 192"):
-        tfa.route(TORCH_DT[dtype], 192)
+def test_route_rejects_head_dim_over_256(dtype):
+    with pytest.raises(ValueError, match="head dim 257"):
+        tfa.route(TORCH_DT[dtype], 257)
     with pytest.raises(TypeError):
         tfa.route(torch.float16, 64)
 

@@ -32,8 +32,10 @@ from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.serve import engine as tserve  # noqa: E402
 
 ARCHS = ["granite-3-2b", "chatglm3-6b", "nemotron-4-340b"]
-# rwkv6-1.6b is ported too: tests/test_torch_rwkv.py
-UNPORTED = [a for a in ARCH_IDS if a not in ARCHS + ["rwkv6-1.6b"]]
+# rwkv6-1.6b and recurrentgemma-9b are ported too: tests/test_torch_rwkv.py,
+# tests/test_torch_griffin.py
+UNPORTED = [a for a in ARCH_IDS
+            if a not in ARCHS + ["rwkv6-1.6b", "recurrentgemma-9b"]]
 LOGIT_TOL = 1e-4
 CPU = "cpu"
 
