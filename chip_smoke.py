@@ -18,7 +18,9 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      own, by kernel and launch bound); the two tensor-core
      libraries must show 0 spill bytes, no "wgmma ... serialized" warning
      and tensor-core instructions in their SASS (``cuobjdump -sass``):
-     HGMMA for attention, HMMA for the chunked WKV6; the CUDA-core flash
+     HGMMA for attention, whose instances DP 64, 128, 192 and 256 must
+     each be in ptxas's log with their registers, HMMA for the chunked
+     WKV6; the CUDA-core flash
      library's registers and spill bytes by dtype and padded head dim
      (32 to 256);
   3. each SpMV kernel of both routes against its plain torch version on
@@ -110,17 +112,19 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      loaded plan's device bytes; then the graph plans are freed;
   6. flash attention against its plain version (mha_ref; mha_chunked for
      the long case), each case on the kernel ``flash_attention.route``
-     gives it (bf16 at D 64 and 128: tensor cores; f32 and bf16 at other
-     head dims: CUDA cores): the granite prefill shape (B 4, H 32, Hkv 8,
-     S 1024, D 64, causal) in bf16 and f32, ragged non-causal S = 100,
+     gives it (bf16 at D 64, 128, 192 and 256: tensor cores; f32 and bf16
+     at other head dims: CUDA cores): the granite prefill shape (B 4, H
+     32, Hkv 8, S 1024, D 64, causal) in bf16 and f32, ragged non-causal
+     S = 100,
      windows, D = 128, GQA group 32, the model's (B, S, H, D) memory,
      D = 32, recurrentgemma-9b's prefill (B 4, H 16, Hkv 1, S 3072, D
-     256, window 2048) in bf16 and in f32 at S 1024, a ragged S = 777
-     full at D 256, nemotron-4-340b's D 192 (H 96, Hkv 8, S 1024), and B
-     1 x H 32 x S 16384 causal (with its device time beside SDPA's); each
-     case within an elementwise and a relative-L2 limit, and a planted
-     fault (one key tile dropped) must break both at D 64, D 128 and
-     recurrentgemma's D 256;
+     256, window 2048) in bf16 (also in the model's memory) and in f32 at
+     S 1024, a ragged S = 777 full at D 256, nemotron-4-340b's D 192 (H
+     96, Hkv 8, S 1024), ragged D 192 cases (windowed; the model's
+     memory), and B 1 x H 32 x S 16384 causal (with its device time
+     beside SDPA's); each case within an elementwise and a relative-L2
+     limit, and a planted fault (one key tile dropped) must break both at
+     D 64, D 128, recurrentgemma's D 256 and its f32 case;
   7. LM serving: granite-3-2b (40 layers, d_model 2048, 2.53 B
      parameters, random weights from seed 0, bf16) through ``generate``
      (4 prompts x 1024 tokens, 32 new) and ``ServeLoop`` (4 slots, 8 such
@@ -173,18 +177,22 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      4096; param_count 9,396,297,728; random from seed 3, bf16) through
      ``generate`` (4 prompts x 3072 tokens, 32 new) and ``ServeLoop`` (4
      slots, 8 such requests, cache_len 3200);
-     ``launch_counts["flash_attention"]`` and its CUDA-core count are 12 x
-     the prefills (none at decode), the tensor-core count 0; the first
+     ``launch_counts["flash_attention"]`` and its tensor-core count are 12
+     x the prefills (none at decode), the CUDA-core count 0; the first
      wave's tokens equal the static batch's; one wave's prefill logits
      against the same model with mha_ref, bf16 and its f32 upcast (whole
      superblocks cut, and the cut printed, where the upcast does not fit
      beside the model), where a dropped key tile in every local layer
-     must fail the f32 gate; the serving metrics, the prefill's device
+     must fail the f32 gate; the two prefill waves of that check launch
+     the flash kernel once a local layer, the bf16 one on the tensor
+     cores, the f32 one on the CUDA cores (the f32 route's main path);
+     the serving metrics, the prefill's device
      time split into GEMMs, flash, the RG-LRU time loop (one ``addcmul``
      a step: 26 x 3072 launches a prefill) and the rest, peak memory;
- 13. the CUDA-core flash kernel's times at recurrentgemma's prefill shape
-     and at nemotron's D 192 (call, device, bound, plain, SDPA with the
-     kernel it ran: a boolean window mask for recurrentgemma);
+ 13. the flash kernels' times at recurrentgemma's prefill shape, bf16 on
+     the tensor cores and f32 on the CUDA cores, and at nemotron's D 192
+     in bf16 (call, device, bound, plain, SDPA with the kernel it ran: a
+     boolean window mask for recurrentgemma);
  14. a JSON line with every kernel; the last line is
      ``{"ok": true, "device": {...}}``.
 
@@ -2335,14 +2343,16 @@ def attention_pairs(b, h, s, causal, window) -> int:
 
 
 def attention_bound(b, h, hkv, s, d, dtype, causal, window):
-    """Least time for one call: operations (4·D per kept pair) at the bf16
-    tensor-core peak, or q, k, v read and o written once at 3.35 TB/s,
-    whichever is larger."""
+    """Least time for one call: operations (4·D per kept pair) at the peak
+    of their type (bf16: the tensor cores; f32: the CUDA cores, since
+    TF32 would round the inputs), or q, k, v read and o written once at
+    3.35 TB/s, whichever is larger."""
     import torch
     ops_ = 4 * d * attention_pairs(b, h, s, causal, window)
     elem = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * b * h * s * d + 2 * b * hkv * s * d) * elem
-    t_ops, t_bytes = ops_ / BF16_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    peak = BF16_PEAK_FLOPS if dtype == torch.bfloat16 else F32_PEAK_FLOPS
+    t_ops, t_bytes = ops_ / peak, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", ops_, nbytes)
 
@@ -2373,7 +2383,7 @@ def _planted_fault(q, k, v, want, causal, window, what):
 def attention_vs_plain(gen):
     """The flash kernels against their plain version at the serving shapes,
     each case on the route ``flash_attention.route`` gives it; returns the
-    largest |kernel − plain| of each route."""
+    largest |kernel − plain| of each route, and each case's."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref as tref
@@ -2399,22 +2409,32 @@ def attention_vs_plain(gen):
          64, bf16, True, None, True),
         # the CUDA-core kernel's bf16 route
         ("D=32 bf16", 1, 8, 2, 512, 32, bf16, True, None),
-        # head dims 192 and 256 (CUDA cores): recurrentgemma-9b's prefill
-        # (MQA, window 2048, the window masking every query past 2047)
-        # and nemotron-4-340b's
+        # head dims 192 and 256: recurrentgemma-9b's prefill (MQA, window
+        # 2048, the window masking every query past 2047) and
+        # nemotron-4-340b's; bf16 on the tensor cores, f32 on the CUDA
+        # cores
         ("recurrentgemma prefill D=256 window 2048 bf16", PROMPTS,
          16, 1, GRIFFIN_PROMPT_LEN, 256, bf16, True, GRIFFIN_WINDOW),
         ("recurrentgemma D=256 window 2048 S=1024 f32", PROMPTS, 16,
          1, 1024, 256, f32, True, GRIFFIN_WINDOW),
         ("D=256 ragged S=777 full bf16", 1, 16, 1, 777, 256, bf16, False,
          None),
+        ("recurrentgemma, model layout (B,S,H,D) D=256 bf16", 1, 16, 1,
+         GRIFFIN_PROMPT_LEN, 256, bf16, True, GRIFFIN_WINDOW, True),
         ("nemotron D=192 bf16", 1, 96, 8, 1024, 192, bf16, True, None),
+        ("D=192 ragged S=777 window 300 bf16", 1, 8, 2, 777, 192, bf16,
+         True, 300),
+        ("D=192 ragged S=100 full, model layout bf16", 2, 8, 8, 100, 192,
+         bf16, False, None, True),
     ]
     fault_at = {"granite prefill bf16": "tensor_cores",
                 "D=128 chatglm3 bf16": "tensor_cores",
                 "recurrentgemma prefill D=256 window 2048 bf16":
+                    "tensor_cores",
+                "recurrentgemma D=256 window 2048 S=1024 f32":
                     "cuda_cores"}
     worst = {"tensor_cores": 0.0, "cuda_cores": 0.0}
+    errs = {}
     for name, b, h, hkv, sl, d, dt, causal, window, *layout in cases:
         q, k, v = _qkv(gen, b, h, hkv, sl, d, dt, model_layout=bool(layout))
         path = fa.route(dt, d)
@@ -2424,7 +2444,8 @@ def attention_vs_plain(gen):
                 before["flash_attention_" + path] + 1:
             raise AssertionError(f"{name}: not launched on {path}")
         want = tref.attention_ref(q, k, v, causal=causal, window=window)
-        worst[path] = max(worst[path], _attn_check(got, want, dt, name, path))
+        errs[name] = _attn_check(got, want, dt, name, path)
+        worst[path] = max(worst[path], errs[name])
         if name in fault_at:
             if path != fault_at[name]:
                 raise AssertionError(f"{name} ran on {path}")
@@ -2448,7 +2469,7 @@ def attention_vs_plain(gen):
          bound_ms=bound[0], bound_by=bound[1])
     emit(phase="attention_vs_plain", ok=True, cases=len(cases) + 1,
          planted_faults=len(fault_at), max_abs_err=worst)
-    return worst
+    return worst, errs
 
 
 def sdpa_call(q, k, v, window=None):
@@ -2620,8 +2641,11 @@ def check_prefill_logits(cfg, model, toks, phase="lm_logits"):
     the first two prompts alone (another batch size, so other matmul
     kernels), and a dropped key tile in every layer, which must read
     above the f32 gate; then the bf16 model's own distance from its f32
-    upcast."""
+    upcast.  Returns, by dtype, the layers run and the flash launches of
+    the kernel's prefill (the counts set to 0 just before it and read
+    just after): the f32 wave is the f32 route's main path."""
     import torch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models import lm
 
@@ -2630,9 +2654,12 @@ def check_prefill_logits(cfg, model, toks, phase="lm_logits"):
 
     cache_len = toks.shape[1]
     cfg32, m32 = upcast(cfg, model)
-    plain = {}
+    plain, routes = {}, {}
     for dt, c, m in (("bfloat16", cfg, model), ("float32", cfg32, m32)):
+        fa.reset_launch_counts()
         got, _ = lm.prefill(c, m, toks, cache_len=cache_len)
+        torch.cuda.synchronize()
+        routes[dt] = {"layers": c.num_layers, **fa.launch_counts}
         with ops_swapped("attention", ref.attention_ref):
             want, _ = lm.prefill(c, m, toks, cache_len=cache_len)
             half, _ = lm.prefill(c, m, toks[:2], cache_len=cache_len)
@@ -2657,6 +2684,7 @@ def check_prefill_logits(cfg, model, toks, phase="lm_logits"):
              rel_l2=rel(plain["bfloat16"], plain["float32"]))
     del m32
     torch.cuda.empty_cache()
+    return routes
 
 
 def decode_idle_share(cfg, model, cache, tok, pos, phase):
@@ -3459,14 +3487,18 @@ GRIFFIN_ARCH = "recurrentgemma-9b"
 GRIFFIN_PROMPT_LEN, GRIFFIN_CACHE_LEN = 3072, 3200
 GRIFFIN_WINDOW = 2048
 GRIFFIN_PARAM_COUNT = 9_396_297_728   # configs' param_count()
-ATTN_ERR = {}   # attention_vs_plain's largest |kernel − plain| by route
+ATTN_ERR = {}   # attention_vs_plain's |kernel − plain| by case
 
 
 def griffin_path():
     """Serve recurrentgemma-9b at full width and depth: static generate and
     ServeLoop with every prefill's local-attention layers through the
-    CUDA-core flash kernel (none at decode), then the logit gate and the
-    serving metrics with the prefill's device time split."""
+    tensor-core flash kernel (none on the CUDA cores, none at decode),
+    then the logit gate, whose f32 upcast's prefill wave runs the f32
+    route (the CUDA-core kernel, once a local layer), and the serving
+    metrics with the prefill's device time split.  Returns the serving
+    launches, the f32 wave's and the metrics."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -3503,47 +3535,74 @@ def griffin_path():
         cache_len=GRIFFIN_CACHE_LEN)
     path = fa.route(getattr(torch, cfg.compute_dtype), cfg.head_dim)
     want = {"flash_attention": n_local * prefills,
-            "flash_attention_cuda_cores": n_local * prefills,
-            "flash_attention_tensor_cores": 0}
-    if path != "cuda_cores" or launches != want:
+            "flash_attention_tensor_cores": n_local * prefills,
+            "flash_attention_cuda_cores": 0}
+    if path != "tensor_cores" or launches != want:
         raise AssertionError(f"flash launches {launches} on {path}, "
                              f"expected {want}: {n_local} local layers x "
                              f"{prefills} prefills, none at decode")
 
     toks = torch.as_tensor(prompts[:PROMPTS], dtype=torch.long,
                            device=DEVICE)
-    check_prefill_logits(cfg, model, toks, phase="griffin_logits")
+    routes = check_prefill_logits(cfg, model, toks, phase="griffin_logits")
+    for dt, on, off in (("bfloat16", "tensor_cores", "cuda_cores"),
+                        ("float32", "cuda_cores", "tensor_cores")):
+        n = lm.layer_kinds(dataclasses.replace(
+            cfg, num_layers=routes[dt]["layers"])).count("local_attn")
+        got = {k: routes[dt][k] for k in want}
+        need = {"flash_attention": n, "flash_attention_" + on: n,
+                "flash_attention_" + off: 0}
+        emit(phase="griffin_logits_launches", dtype=dt, route=on,
+             layers=routes[dt]["layers"], local_attn_layers=n, **got)
+        if got != need or n == 0:
+            raise AssertionError(f"{dt} prefill wave: flash launches {got}, "
+                                 f"expected {need}")
     rec = serving_metrics(cfg, model, toks, fa.launch_counts,
                           "griffin_serving")
     emit(phase="griffin_rg_lru_loop",
          launches_per_prefill=n_rec * GRIFFIN_PROMPT_LEN,
          launches_per_decode_step=n_rec, recurrent_layers=n_rec)
-    return launches, rec
+    return launches, routes["float32"], rec
 
 
 def griffin_phases():
     """Slice 4: recurrentgemma-9b served at full width and depth, then the
-    CUDA-core flash kernel's times at its prefill shape (D 256, window
-    2048) and at nemotron-4-340b's D 192; returns the kernels line entry
-    of the CUDA-core route.  The flash kernel against its plain version
-    at these shapes runs in ``attention_vs_plain``."""
+    flash kernels' times at its prefill shape (D 256, window 2048): bf16
+    on the tensor cores, f32 on the CUDA cores; and at nemotron-4-340b's
+    D 192 in bf16 (tensor cores).  Returns the kernels line entries: the
+    tensor-core route at D 256 (launches: the served prefills') and the
+    CUDA-core route (launches: the f32 prefill wave's).  The kernels
+    against their plain version at these shapes run in
+    ``attention_vs_plain``."""
     import gc
     import torch
-    launches, _ = griffin_path()
+    launches, f32_wave, _ = griffin_path()
     gc.collect()
     torch.cuda.empty_cache()  # the model's 18.8 GB, before the timings
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    row = time_attention_case(gen, "recurrentgemma", PROMPTS, 16, 1,
-                              GRIFFIN_PROMPT_LEN, 256, torch.bfloat16,
-                              GRIFFIN_WINDOW)
-    time_attention_case(gen, "nemotron D=192", 1, 96, 8, 1024, 192,
-                        torch.bfloat16)
-    return [{"name": "flash_attention", "path": "cuda_cores",
-             "route": "cuda",
+    rows = {}
+    for what, b, h, hkv, s, d, dt, window in (
+            ("recurrentgemma", PROMPTS, 16, 1, GRIFFIN_PROMPT_LEN, 256,
+             torch.bfloat16, GRIFFIN_WINDOW),
+            ("nemotron D=192", 1, 96, 8, 1024, 192, torch.bfloat16, None),
+            ("recurrentgemma f32", PROMPTS, 16, 1, GRIFFIN_PROMPT_LEN, 256,
+             torch.float32, GRIFFIN_WINDOW)):
+        rows[what] = time_attention_case(gen, what, b, h, hkv, s, d, dt,
+                                         window)
+    entry = {"name": "flash_attention", "route": "cuda",
+             "replaces": "src/repro/kernels/flash_attention.py:121"}
+    return [{**entry, "path": "tensor_cores", "shape": "D 256",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+             "launches": launches["flash_attention_tensor_cores"],
+             "max_abs_err": ATTN_ERR[
+                 "recurrentgemma prefill D=256 window 2048 bf16"],
+             **rows["recurrentgemma"]},
+            {**entry, "path": "cuda_cores", "shape": "D 256 f32",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "replaces": "src/repro/kernels/flash_attention.py:121",
-             "launches": launches["flash_attention_cuda_cores"],
-             "max_abs_err": ATTN_ERR["cuda_cores"], **row}]
+             "launches": f32_wave["flash_attention_cuda_cores"],
+             "max_abs_err": ATTN_ERR[
+                 "recurrentgemma D=256 window 2048 S=1024 f32"],
+             **rows["recurrentgemma f32"]}]
 
 
 def ptxas_kernels(log, name_of) -> dict:
@@ -3609,7 +3668,9 @@ def build_all():
          spill_bytes=[int(a) + int(b) for a, b in re.findall(
              r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)],
          **compact_ptxas(log))
-    tensor_core_report(fa.LIBRARIES["tensor_cores"].path(), "HGMMA")
+    tensor_core_report(fa.LIBRARIES["tensor_cores"].path(), "HGMMA",
+                       sm90_flash_instance,
+                       [f"DP {d}" for d in fa.TENSOR_CORE_HEAD_DIMS])
     tensor_core_report(twkv.LIBRARY_CHUNKED.path(), "HMMA")
     log = fa.LIBRARIES["cuda_cores"].path().with_suffix(".log").read_text()
     emit(phase="build_cuda_core_flash",
@@ -3668,18 +3729,30 @@ def nvcc_report(source) -> dict:
                 **compact_ptxas(proc.stdout + proc.stderr))
 
 
-def tensor_core_report(lib, instruction):
+def sm90_flash_instance(mangled):
+    """The tensor-core flash kernel's instance ("DP 64" ... "DP 256") from
+    its mangled name."""
+    import re
+    k = re.search(r"flash_attention_sm90_kernelILi(\d+)E", mangled)
+    return None if k is None else f"DP {k.group(1)}"
+
+
+def tensor_core_report(lib, instruction, name_of=None, expect=()):
     """Registers and spill bytes of each kernel from ptxas's log, and the
     tensor-core instructions in the SASS: HGMMA (wgmma) or HMMA
-    (mma.sync).  Raises on a spill, on ptxas's "wgmma ... serialized"
-    warning, on nvcc's warning of a variable used before it is set, or on
-    a SASS without the instruction."""
+    (mma.sync); with ``name_of``, also by instance, every name in
+    ``expect`` present.  Raises on a spill, on ptxas's "wgmma ...
+    serialized" warning, on nvcc's warning of a variable used before it
+    is set, on a missing instance, or on a SASS without the
+    instruction."""
     import re
     from repro_torch.kernels.cuda_lib import nvcc
     log = lib.with_suffix(".log").read_text()
     registers = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
     spills = [int(a) + int(b) for a, b in re.findall(
         r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    instances = ptxas_kernels(log, name_of) if name_of else {}
+    missing = sorted(set(expect) - set(instances))
     sass = subprocess.run(
         [str(pathlib.Path(nvcc()).with_name("cuobjdump")), "-sass",
          str(lib)], capture_output=True, text=True, check=True).stdout
@@ -3690,10 +3763,14 @@ def tensor_core_report(lib, instruction):
              if "before its value is set" in ln]
     emit(phase="build_tensor_cores", library=lib.name, registers=registers,
          spill_bytes=spills, instruction=instruction, instructions=count,
-         serialized_warnings=serialized, unset_warnings=unset)
-    if not registers or any(spills) or serialized or unset or count == 0:
+         serialized_warnings=serialized, unset_warnings=unset,
+         instances=instances, missing_instances=missing)
+    if not registers or any(spills) or serialized or unset or count == 0 \
+            or missing or any(v["registers"] is None or v["spill_bytes"]
+                              for v in instances.values()):
         raise AssertionError(f"{lib.name}: spills {spills}, {instruction} "
-                             f"{count}, warnings {serialized + unset}")
+                             f"{count}, warnings {serialized + unset}, "
+                             f"instances {instances}, missing {missing}")
 
 
 def graph_phases():
@@ -3744,8 +3821,8 @@ def lm_phases():
     import gc
     import torch
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    attn_err = attention_vs_plain(gen)
-    ATTN_ERR.update(attn_err)
+    attn_err, case_err = attention_vs_plain(gen)
+    ATTN_ERR.update(case_err)
     launches, _ = lm_path()
     kernels = [time_attention(gen, attn_err["tensor_cores"], launches)]
     gc.collect()

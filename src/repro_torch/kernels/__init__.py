@@ -7,10 +7,11 @@
 #                             only (bsr_spmv.build_compact_index): the
 #                             compacted route, which the engines take
 #   csrc/flash_attention.cu — causal/windowed flash attention (LM prefill)
-#                             on the CUDA cores: f32, and bf16 at D != 64, 128
+#                             on the CUDA cores: f32, and bf16 at D other
+#                             than 64, 128, 192, 256
 #   csrc/flash_attention_sm90.cu
 #                           — the same on the tensor cores (wgmma + TMA):
-#                             bf16 at D 64 and 128
+#                             bf16 at D 64, 128, 192 and 256
 #   csrc/wkv6.cu            — the RWKV-6 WKV recurrence (prefill, decode)
 #   bsr_spmv.py, flash_attention.py, wkv6.py
 #                           — build at first use, ctypes binding, checked

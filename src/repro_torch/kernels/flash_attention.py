@@ -5,12 +5,13 @@ launch.
 ``flash_attention`` (``src/repro/kernels/flash_attention.py``) with two
 CUDA kernels, picked by ``route(dtype, d)`` before any launch:
 
-- ``"tensor_cores"``: bf16 at head dim 64 or 128 (granite-3-2b, chatglm3
-  and the llama family), ``csrc/flash_attention_sm90.cu``: wgmma on the
-  tensor cores fed by a TMA ring of K/V tiles;
+- ``"tensor_cores"``: bf16 at head dim 64, 128, 192 or 256 (granite-3-2b,
+  chatglm3 and the llama family; nemotron-4-340b's 192, recurrentgemma-9b's
+  256), ``csrc/flash_attention_sm90.cu``: wgmma on the tensor cores fed by
+  a TMA ring of K/V tiles;
 - ``"cuda_cores"``: f32 at any head dim up to 256, and bf16 at the other
-  head dims up to 256 (nemotron-4-340b's 192, recurrentgemma-9b's 256),
-  ``csrc/flash_attention.cu``: f32 products on the CUDA cores.
+  head dims up to 256 (16, 32, 96, ...), ``csrc/flash_attention.cu``: f32
+  products on the CUDA cores.
 
 Each source's head states its work split, the bound on the H100
 (operations: 17.2 GFLOP, 17.4 us at the bf16 tensor-core peak for one
@@ -47,7 +48,7 @@ from .cuda_lib import BASE_FLAGS, CudaLibrary, on_cpu
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-TENSOR_CORE_HEAD_DIMS = (64, 128)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 192, 256)
 MAX_HEAD_DIM = 256
 MAX_GRID_Y = 65535  # B * H blocks along the CUDA-core kernel's grid y axis
 
@@ -62,7 +63,8 @@ def reset_launch_counts() -> None:
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel that takes q, k, v of this dtype and head dim:
-    ``"tensor_cores"`` for bf16 at D 64 or 128, else ``"cuda_cores"``.
+    ``"tensor_cores"`` for bf16 at D 64, 128, 192 or 256, else
+    ``"cuda_cores"``.
     Raises for a head dim the kernels do not take (D > 256) or a dtype
     other than f32 and bf16."""
     if not 1 <= d <= MAX_HEAD_DIM:

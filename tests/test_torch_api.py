@@ -350,7 +350,7 @@ _BAD_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
 
 def test_sources_import_no_jax_or_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "flash_turns.py"]
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files
                  for m in _BAD_IMPORT.finditer(f.read_text())]

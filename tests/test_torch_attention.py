@@ -15,11 +15,13 @@ kernel, which masks every key >= S) equals ``mha_ref``.
 The tests marked ``cuda`` hold the hand-written CUDA kernels against the
 plain version on the card; they skip without one and need no jax (on the
 card: ``python -m pytest -q -m cuda tests/test_torch_attention.py``).
-``route`` picks the kernel: bf16 at D 64 and 128 takes the tensor-core
-kernel (``test_cuda_tensor_cores_*``), f32 and the other head dims up to
-256 the CUDA-core kernel (``test_cuda_flash_matches_plain`` at D 16, 32,
-256 and in f32, ``test_cuda_flash_strided_output_layout``); each card
-test asserts that its route's launch count moved.
+``route`` picks the kernel: bf16 at D 64, 128, 192 and 256 takes the
+tensor-core kernel (``test_cuda_tensor_cores_*``, and
+``test_cuda_flash_matches_plain``'s bf16 cases at those head dims), f32
+and bf16 at the other head dims up to 256 the CUDA-core kernel
+(``test_cuda_flash_matches_plain`` at D 16 and 32 and in f32,
+``test_cuda_flash_strided_output_layout``); each card test asserts that
+its route's launch count moved.
 """
 
 import numpy as np
@@ -32,7 +34,10 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 MASKS = [(True, None), (False, None), (True, 64)]
-SHAPES = [(2, 4, 2, 256, 64), (1, 2, 1, 128, 32), (1, 2, 1, 192, 256)]
+# S a multiple of the Pallas kernel's 64-row tiles: at a ragged S its
+# non-causal fault (above) would fail the comparison
+SHAPES = [(2, 4, 2, 256, 64), (1, 2, 1, 128, 32), (1, 2, 1, 192, 256),
+          (1, 3, 1, 128, 192)]
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -154,8 +159,9 @@ def test_cpu_tensors_never_launch(rng):
     ("bfloat16", 64, "tensor_cores"), ("bfloat16", 128, "tensor_cores"),
     ("float32", 64, "cuda_cores"), ("float32", 128, "cuda_cores"),
     ("bfloat16", 32, "cuda_cores"), ("bfloat16", 16, "cuda_cores"),
-    ("bfloat16", 192, "cuda_cores"), ("bfloat16", 256, "cuda_cores"),
-    ("float32", 256, "cuda_cores")])
+    ("bfloat16", 192, "tensor_cores"), ("bfloat16", 256, "tensor_cores"),
+    ("float32", 256, "cuda_cores"), ("bfloat16", 96, "cuda_cores"),
+    ("float32", 192, "cuda_cores")])
 def test_route_picks_kernel_by_dtype_and_head_dim(dtype, d, want):
     assert tfa.route(TORCH_DT[dtype], d) == want
     assert tfa.LIBRARIES[want].source.exists()
@@ -246,13 +252,13 @@ TC_MASKS = [(True, None), (False, None), (True, 40), (True, 256)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", [1, 4, 16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("s", [64, 100, 777, 1024])
 @pytest.mark.parametrize("causal,window", TC_MASKS)
 def test_cuda_tensor_cores_match_plain(causal, window, s, d, group, rng,
                                        cuda):
-    """bf16 at D 64 and 128 on the tensor-core route: 16 query heads
-    reading 16 / group kv heads, ragged and tile-aligned S."""
+    """bf16 at D 64, 128, 192 and 256 on the tensor-core route: 16 query
+    heads reading 16 / group kv heads, ragged and tile-aligned S."""
     q, k, v = _torch(_qkv(rng, 1, 16, 16 // group, s, d, "bfloat16"),
                      "bfloat16", cuda)
     assert _check_card(q, k, v, "bfloat16", causal, window) == \
@@ -260,7 +266,7 @@ def test_cuda_tensor_cores_match_plain(causal, window, s, d, group, rng,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("causal,window", TC_MASKS)
 def test_cuda_tensor_cores_model_layout(causal, window, d, rng, cuda):
     """The model's (B, S, H, D) memory on the tensor-core route, through

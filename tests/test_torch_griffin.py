@@ -17,8 +17,9 @@ O(1)), ``pos_of_slot`` exactly.  Greedy tokens are compared in float32
 too, where the two frameworks' bf16 roundings cannot flip a near tie.
 The bf16 model is held against its own f32 upcast.
 
-The test marked ``cuda`` holds the CUDA-core flash kernel at head dims
-192 and 256 against its plain version on the card; it needs no jax.
+The test marked ``cuda`` holds the flash kernels at head dims 192 and
+256 against their plain version on the card, each on its route (f32: the
+CUDA-core kernel; bf16: the tensor-core kernel); it needs no jax.
 """
 
 import copy
@@ -472,17 +473,24 @@ def cuda():
     (192, 8, 2, 200, True, None), (192, 4, 4, 130, False, 40)])
 def test_cuda_flash_wide_heads_match_plain(dtype, d, h, hkv, s, causal,
                                            window, cuda):
-    """The CUDA-core kernel's DP 192 and 256 instances against the plain
-    version: recurrentgemma's MQA under a window, nemotron's D 192."""
+    """The flash kernels at D 192 and 256 against the plain version:
+    recurrentgemma's MQA under a window, nemotron's D 192.  f32 takes the
+    CUDA-core kernel's DP 192 and 256 instances, bf16 the tensor-core
+    kernel's."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((2, n, s, d), generator=gen, device=cuda)
                .to(dtype) for n in (h, hkv, hkv))
-    assert tfa.route(dtype, d) == "cuda_cores"
-    before = tfa.launch_counts["flash_attention_cuda_cores"]
+    path = "cuda_cores" if dtype == torch.float32 else "tensor_cores"
+    assert tfa.route(dtype, d) == path
+    before = dict(tfa.launch_counts)
     got = tfa.flash_attention(q, k, v, causal=causal, window=window)
     want = tref.attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert tfa.launch_counts["flash_attention_cuda_cores"] == before + 1
+    for key in ("flash_attention", "flash_attention_" + path):
+        assert tfa.launch_counts[key] == before[key] + 1
+    other = {"cuda_cores": "flash_attention_tensor_cores",
+             "tensor_cores": "flash_attention_cuda_cores"}[path]
+    assert tfa.launch_counts[other] == before[other]
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol,
