@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA GPU: the graph engine's main
 path, LM serving (granite-3-2b at full width), RWKV-6 serving
-(rwkv6-1.6b at full width and depth) and Griffin serving
-(recurrentgemma-9b at full width and depth), every hand-written kernel
-against its plain version.
+(rwkv6-1.6b at full width and depth), Griffin serving
+(recurrentgemma-9b at full width and depth), MoE serving (dbrx-132b at
+full width, 8 of its 40 layers) and MLA serving (minicpm3-4b at full
+width and depth), every hand-written kernel against its plain version.
 
-    python3 chip_smoke.py            # everything (about 12 minutes)
+    python3 chip_smoke.py            # everything (about 14 minutes)
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
@@ -193,7 +194,39 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      the tensor cores and f32 on the CUDA cores, and at nemotron's D 192
      in bf16 (call, device, bound, plain, SDPA with the kernel it ran: a
      boolean window mask for recurrentgemma);
- 14. a JSON line with every kernel; the last line is
+ 14. MoE serving, after recurrentgemma's weights are freed: the
+     tensor-core flash kernel against its plain version at dbrx-132b's
+     prefill shape (B 4, H 48, Hkv 8: GQA group 6, S 1024, D 128, causal,
+     bf16; also in the model's memory), a dropped key tile must fail;
+     dbrx-132b (d_model 6144, 48 heads, 8 kv heads of 128, 16 experts
+     top 4 of d_ff 10752, vocab 100,352) at full width, its first 8 of 40
+     layers (param_count 27,305,803,776; 54.6 GB in bf16; random from
+     seed 5), through the same traffic as granite (prompts of 1024 =
+     ``moe_group_size`` tokens, so each prefill group is one prompt in
+     every wave); ``launch_counts["flash_attention"]`` and its tensor-core
+     count are 8 x the prefills, the CUDA-core count 0; the first wave's
+     tokens equal the static batch's (a flip teacher-forced through
+     prefill and decode); one wave's prefill logits against the same model
+     with mha_ref in bf16 (5e-2) on the kernel path's routes (the
+     router's choices replayed, ``routes_held``), with the free runs'
+     distance, the share of (token, layer, choice) routes on which they
+     agree and each layer's dropped share beside it; the
+     serving metrics, the prefill's device time split into GEMMs, flash,
+     the MoE's routing, dispatch and combine and the rest; then, the 8
+     layers freed, the first 2 drawn anew from the same seed (their bits
+     checked equal) and upcast to f32: the f32 gate (1e-4, every route
+     equal, a dropped key tile above it), its wave on the CUDA-core
+     kernel, once a layer; the kernel's times at dbrx's shape;
+ 15. MLA serving: minicpm3-4b (62 layers, d_model 2560, 40 heads, q_lora
+     768, kv_lora 256, qk head 64 + 32, v head 64; param_count
+     4,261,836,800; 8.5 GB in bf16; random from seed 7) through the same
+     traffic; no flash launch on any route (its value head is narrower
+     than its key head, so the plain attention runs, as in the
+     reference); tokens as above; on its f32 upcast a decode step at
+     position 1024 (absorbed latent attention) against a prefill of 1025
+     tokens (K and V materialised) within 1e-4 relative L2, with the bf16
+     distances beside it; the serving metrics;
+ 16. a JSON line with every kernel; the last line is
      ``{"ok": true, "device": {...}}``.
 
 Each earlier JSON line carries the card's name and power limit and the
@@ -2562,13 +2595,34 @@ class ops_swapped:
         setattr(ops, self.name, self.saved)
 
 
-def check_tokens(cfg, model, prompts, static, reqs):
-    """Requests that shared a wave with the static batch must give its
-    tokens; a flip passes only where the two candidates' logits tie
-    within FLIP_TOL (teacher-forced forward of the common prefix)."""
+def teacher_forced_logits(cfg, model, prompt, forced):
+    """The next-token logits after ``prompt`` and the ``forced`` tokens,
+    batch 1.  A MoE model takes the served path, a prefill of the prompt
+    and a decode step a token: a forward over prompt + t tokens would
+    group them as one prompt plus t remainder tokens, whose MoE output is
+    their input (the reference's quirk).  The others take ``forward``."""
     import numpy as np
     import torch
     from repro_torch.models import lm
+    if "moe" not in lm.layer_kinds(cfg):
+        prefix = np.concatenate([prompt, forced])[None]
+        return lm.forward(cfg, model, torch.as_tensor(
+            prefix, device=DEVICE))[0, -1].float()
+    n = len(prompt)
+    logits, cache = lm.prefill(cfg, model, torch.as_tensor(
+        prompt[None], dtype=torch.long, device=DEVICE),
+        cache_len=n + len(forced))
+    for j, tok in enumerate(forced):
+        logits, cache = lm.decode_step(cfg, model, cache, torch.tensor(
+            [int(tok)], device=DEVICE), n + j)
+    return logits[0].float()
+
+
+def check_tokens(cfg, model, prompts, static, reqs):
+    """Requests that shared a wave with the static batch must give its
+    tokens; a flip passes only where the two candidates' logits tie
+    within FLIP_TOL (``teacher_forced_logits`` of the common prefix)."""
+    import numpy as np
     flips = []
     prompt_len = prompts.shape[1]
     for i, r in enumerate(reqs[:PROMPTS]):
@@ -2579,9 +2633,8 @@ def check_tokens(cfg, model, prompts, static, reqs):
             continue
         t = next(j for j, (a, b) in enumerate(zip(r.generated, want))
                  if a != b)
-        prefix = np.concatenate([prompts[i], want[:t]])[None]
-        logits = lm.forward(cfg, model, torch.as_tensor(
-            prefix, device=DEVICE))[0, -1].float()
+        logits = teacher_forced_logits(cfg, model, prompts[i],
+                                       np.asarray(want[:t], np.int64))
         gap = float((logits[want[t]] - logits[r.generated[t]]).abs())
         flips.append({"request": i, "at": t, "gap": gap})
         if gap > FLIP_TOL:
@@ -2782,13 +2835,13 @@ PREFILL_SPLIT = {"gemm": ("gemm", "nvjet", "xmma", "cutlass"),
                  "rg_lru_loop": ("addcmul",)}
 
 
-def serving_metrics(cfg, model, toks, counts, phase):
+def serving_metrics(cfg, model, toks, counts, phase, split=None):
     """Prefill tokens/s, TTFT, decode ms/step and tokens/s, the kernel's
     launches per decode step, and the device idle share over a few decode
     steps (host clock, synchronised).  TTFT: the prefill of the wave and
     its first tokens on the host, which every request of the wave waits
     for.  The profiled prefill's device time and launches by kernel
-    group (``device_split`` by PREFILL_SPLIT)."""
+    group (``device_split`` by ``split``, by default PREFILL_SPLIT)."""
     import torch
     from repro_torch.models import lm
     prompts, prompt_len = toks.shape
@@ -2800,7 +2853,7 @@ def serving_metrics(cfg, model, toks, counts, phase):
     emit(phase=phase + "_prefill_profile", wall_s=wall,
          device_busy_s=busy if busy > 0 else "not measured",
          idle_share=1 - busy / wall if busy > 0 else "not measured",
-         top=top, split=device_split(events, PREFILL_SPLIT))
+         top=top, split=device_split(events, split or PREFILL_SPLIT))
     prefill_s, ttft_s = [], []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -3605,6 +3658,420 @@ def griffin_phases():
              **rows["recurrentgemma f32"]}]
 
 
+# -- MoE and MLA serving: dbrx-132b (8 of 40 layers) and minicpm3-4b -------
+
+MOE_ARCH = "dbrx-132b"
+# 8 of dbrx's 40 layers at full width: 27.31 B parameters, 54.6 GB in bf16
+# (16 experts of 3 x 6144 x 10752 a layer); ten would be 67.6 GB, too
+# close to 80 GB beside the prefill waves and the logit checks
+MOE_LAYERS = 8
+MOE_PARAM_COUNT = 27_305_803_776     # param_count() of the 8-layer config
+MLA_ARCH = "minicpm3-4b"
+MLA_PARAM_COUNT = 4_261_836_800      # param_count(), 62 layers
+# a decode step at position S (absorbed latent attention) against the last
+# logits of a prefill of S + 1 tokens (K and V materialised), in f32
+MLA_DECODE_TOL = 1e-4
+# a prefill's device time with the MoE's routing, dispatch and combine
+# (sort, cumsum, index_copy_, the gather) beside the GEMMs
+MOE_PREFILL_SPLIT = {**PREFILL_SPLIT,
+                     "moe_dispatch": ("sort", "scan", "index", "scatter",
+                                      "gather")}
+
+
+class routes_recorded:
+    """Within the block every call of the port's ``moe.router`` (one a
+    MoE layer and forward) is recorded in ``calls``, its result passed on
+    unchanged: the top-k experts, kept pairs and gates the model used."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.saved, self.calls = moe.router, []
+
+        def record(*args, **kwargs):
+            r = self.saved(*args, **kwargs)
+            self.calls.append(r)
+            return r
+
+        moe.router = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.router = self.saved
+
+
+class routes_held:
+    """Within the block the port's ``moe.router`` returns, call by call,
+    the top-k experts, positions, kept pairs and slots of ``calls`` (an
+    earlier run's ``routes_recorded``) with this run's own logits and
+    gates, and its own gate weights at those experts renormalised as the
+    router does: the discrete choices held, every value computed."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        import dataclasses
+        from repro_torch.models import moe
+        self.saved, held = moe.router, iter(self.calls)
+
+        def replay(*args, **kwargs):
+            own, r = self.saved(*args, **kwargs), next(held)
+            topw = own.gates.gather(-1, r.topi)
+            return dataclasses.replace(
+                r, logits=own.logits, gates=own.gates,
+                topw=topw / topw.sum(-1, keepdim=True).clamp_min(1e-9))
+
+        moe.router = replay
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.router = self.saved
+
+
+def route_agreement(a, b):
+    """(share of the (token, layer, choice) routes equal in two runs'
+    ``routes_recorded`` calls, the tokens whose routes differ, and at
+    those the smallest gap between adjacent gates among the first run's
+    top k + 1: the tie that the run's rounding crossed)."""
+    import torch
+    same = total = flipped = 0
+    gaps = []
+    for ra, rb in zip(a, b, strict=True):
+        eq = ra.topi == rb.topi
+        same += int(eq.sum())
+        total += eq.numel()
+        moved = ~eq.all(-1)
+        if bool(moved.any()):
+            k = ra.topi.shape[-1]
+            top = torch.sort(ra.gates, -1, descending=True).values[..., :k + 1]
+            gaps += (top[..., :-1] - top[..., 1:]).min(-1).values[moved] \
+                .tolist()
+            flipped += int(moved.sum())
+    return same / total, flipped, max(gaps) if gaps else None
+
+
+def moe_logit_gate(cfg, model, toks, dt, phase):
+    """One wave's prefill logits with the kernel against the same model
+    with mha_ref called explicitly (``LOGIT_REL_TOL``), beside a dropped
+    key tile in every layer, which must read above the gate.
+
+    Routing is discrete: a gate that the two paths' roundings put on
+    either side of the k-th largest moves a token's output by a whole
+    expert, and a moved token moves the capacity positions of the tokens
+    behind it.  So in bf16 the plain path and the fault run on the
+    kernel path's routes (``routes_held``), and the free plain run's
+    distance is printed beside the gate with the share of (token, layer,
+    choice) routes on which the free runs agree, the tokens moved with
+    their largest gate gap, and each layer's dropped share.  In f32 the
+    runs are free, and every route must be equal.  Returns the flash
+    launches of the kernel's prefill (the counts set to 0 just before it
+    and read just after)."""
+    import contextlib
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import lm
+
+    def rel(x, y):
+        return float((x.float() - y.float()).norm() / y.float().norm())
+
+    def prefill():
+        return lm.prefill(cfg, model, toks, cache_len=toks.shape[1])[0]
+
+    fa.reset_launch_counts()
+    with routes_recorded() as kern:
+        got = prefill()
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    with ops_swapped("attention", ref.attention_ref), \
+            routes_recorded() as free:
+        want_free = prefill()
+    hold = dt == "bfloat16"
+    held = (lambda: routes_held(kern.calls)) if hold else \
+        contextlib.nullcontext
+    with ops_swapped("attention", ref.attention_ref), held():
+        want = prefill() if hold else want_free
+    with ops_swapped("attention", dropped_tile_attention), held():
+        bad = prefill()
+    agree, moved, gap = route_agreement(kern.calls, free.calls)
+    err, fault = rel(got, want), rel(bad, want)
+    finite = bool(torch.isfinite(got).all())
+    emit(phase=phase, dtype=dt, layers=cfg.num_layers, routes_held=hold,
+         rel_l2=err, tol=LOGIT_REL_TOL[dt], free_rel_l2=rel(got, want_free),
+         dropped_tile_rel_l2=fault, route_agreement=agree,
+         moved_tokens=moved, moved_gate_gap_max=gap,
+         frac_dropped=[1 - float(r.keep.float().mean()) for r in kern.calls],
+         max_abs=float((got.float() - want.float()).abs().max()),
+         top1_agree=float((got.argmax(-1) == want.argmax(-1)).float()
+                          .mean()), finite=finite, **launches)
+    if not finite or err > LOGIT_REL_TOL[dt] or \
+            fault <= LOGIT_REL_TOL[dt] or (not hold and agree != 1.0):
+        raise AssertionError(f"{dt} prefill logits off mha_ref: {err}; "
+                             f"routes equal {agree}; a dropped key tile: "
+                             f"{fault}")
+    return launches
+
+
+def weight_bits(model, n_blocks):
+    """Per parameter of the embedding, head, ln_f and the first
+    ``n_blocks`` blocks: the sums of its bit patterns, all and every
+    997th (two models drawn alike give equal sums)."""
+    import torch
+    out = {}
+    for name, p in model.named_parameters():
+        if name.startswith("blocks.") and int(name.split(".")[1]) >= n_blocks:
+            continue
+        bits = p.detach().view(torch.int16 if p.element_size() == 2
+                               else torch.int32).flatten()
+        out[name] = (int(bits.sum(dtype=torch.int64)),
+                     int(bits[::997].sum(dtype=torch.int64)))
+    return out
+
+
+def moe_path():
+    """Serve dbrx-132b at full width, its first MOE_LAYERS layers: static
+    generate and ServeLoop with every prefill's attention through the
+    tensor-core flash kernel (none on the CUDA cores, none at decode),
+    the bf16 logit gate with its routes, the serving metrics; then the
+    f32 gate on the first two layers, drawn anew from the same seed (an
+    f32 copy of two layers, 31 GB, does not fit beside the eight in
+    bf16), whose wave runs the f32 route.  Returns the serving launches,
+    the f32 wave's and the metrics."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm, moe
+
+    full = get_config(MOE_ARCH)
+    cfg = full.reduced() if LM_REDUCED else dataclasses.replace(
+        full, num_layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(5),
+                    device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    emit(phase="moe_init", arch=cfg.name, layers=cfg.num_layers,
+         cut_from=full.num_layers, experts=cfg.num_experts,
+         top_k=cfg.top_k, group=cfg.moe_group_size,
+         capacity=moe.capacity(cfg, cfg.moe_group_size, False),
+         params=n_params, param_count=cfg.param_count(),
+         weight_gb=sum(p.numel() * p.element_size()
+                       for p in model.parameters()) / 1e9,
+         seconds=time.perf_counter() - t0)
+    # param_count leaves out ln_f
+    if n_params != cfg.param_count() + cfg.d_model or (
+            not LM_REDUCED and cfg.param_count() != MOE_PARAM_COUNT):
+        raise AssertionError(f"{cfg.name}: {n_params} parameters, "
+                             f"param_count {cfg.param_count()}")
+
+    # prompts of PROMPT_LEN = moe_group_size tokens: every prefill group is
+    # one whole prompt, in the static batch and in any ServeLoop wave, so
+    # capacity drops are the same in both and the token check holds
+    if not LM_REDUCED and PROMPT_LEN != cfg.moe_group_size:
+        raise AssertionError(f"prompts of {PROMPT_LEN} tokens, groups of "
+                             f"{cfg.moe_group_size}")
+    prompts, launches, prefills, _ = serve_traffic(
+        cfg, model, fa.launch_counts, fa.reset_launch_counts,
+        "moe_main_path")
+    path = fa.route(getattr(torch, cfg.compute_dtype), cfg.head_dim)
+    n = cfg.num_layers * prefills
+    want = {"flash_attention": n, "flash_attention_tensor_cores": n,
+            "flash_attention_cuda_cores": 0}
+    if path != "tensor_cores" or launches != want:
+        raise AssertionError(f"flash launches {launches} on {path}, "
+                             f"expected {want}: {cfg.num_layers} layers x "
+                             f"{prefills} prefills, none at decode")
+
+    toks = torch.as_tensor(prompts[:PROMPTS], dtype=torch.long,
+                           device=DEVICE)
+    moe_logit_gate(cfg, model, toks, "bfloat16", "moe_logits")
+    rec = serving_metrics(cfg, model, toks, fa.launch_counts, "moe_serving",
+                          split=MOE_PREFILL_SPLIT)
+    bits = weight_bits(model, 2)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    m32 = lm.init(cfg2, torch.Generator(device=DEVICE).manual_seed(5),
+                  device=DEVICE)
+    if weight_bits(m32, 2) != bits:
+        raise AssertionError("the 2-layer model's weights differ from the "
+                             "served model's first two layers")
+    m32.float()
+    f32_wave = moe_logit_gate(cfg2, m32, toks, "float32", "moe_logits")
+    need = {"flash_attention": 2, "flash_attention_cuda_cores": 2,
+            "flash_attention_tensor_cores": 0}
+    if {k: f32_wave[k] for k in need} != need:
+        raise AssertionError(f"f32 prefill wave: flash launches {f32_wave}, "
+                             f"expected {need}")
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, f32_wave, rec
+
+
+def moe_phases():
+    """Slice 5: the tensor-core flash kernel against its plain version at
+    dbrx-132b's prefill shape (B 4, H 48, Hkv 8: GQA group 6, S 1024, D
+    128, causal, bf16) with a dropped key tile that must fail; dbrx-132b
+    served at full width (8 of 40 layers); the kernel's times at that
+    shape.  Returns the kernels line entry."""
+    import gc
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref as tref
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    bf16, errs = torch.bfloat16, []
+    path = fa.route(bf16, 128)
+    for layout in (False, True):
+        what = "dbrx prefill D=128 Hkv=8 (group 6) bf16" + (
+            ", model layout (B,S,H,D)" if layout else "")
+        q, k, v = _qkv(gen, PROMPTS, 48, 8, PROMPT_LEN, 128, bf16,
+                       model_layout=layout)
+        before = fa.launch_counts["flash_attention_" + path]
+        got = fa.flash_attention(q, k, v)
+        if fa.launch_counts["flash_attention_" + path] != before + 1:
+            raise AssertionError(f"{what}: not launched on {path}")
+        want = tref.attention_ref(q, k, v)
+        errs.append(_attn_check(got, want, bf16, what, path))
+        if not layout:
+            _planted_fault(q, k, v, want, True, None, what)
+    del q, k, v, got, want
+    launches, _, _ = moe_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = time_attention_case(gen, "dbrx", PROMPTS, 48, 8, PROMPT_LEN, 128,
+                              bf16)
+    emit(phase="moe_freed", device_gb=torch.cuda.memory_allocated() / 1e9)
+    return [{"name": "flash_attention", "route": "cuda",
+             "path": "tensor_cores", "shape": "dbrx D 128, Hkv 8 of 48",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:121",
+             "launches": launches["flash_attention_tensor_cores"],
+             "max_abs_err": max(errs), **row}]
+
+
+def mla_decode_gate(cfg, model, prompts, flash=False):
+    """On the model upcast to f32 (``upcast``): the logits of a decode
+    step at position S, MLA's absorbed attention in the latent space over
+    the prefilled (c_kv, k_rope) cache, against the last logits of a
+    prefill of the S + 1 tokens, which materialises K and V per head
+    (MLA_DECODE_TOL, relative L2); beside it the same in bf16 and the
+    bf16 prefill's distance from the f32 one.  No flash kernel may launch
+    (MLA's value head is narrower than its key head), but for ``flash`` (a
+    CPU rehearsal's reduced config) in the prefills."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+
+    def rel(x, y):
+        return float((x.float() - y.float()).norm() / y.float().norm())
+
+    s = prompts.shape[1]
+    full = torch.as_tensor(np.concatenate(
+        [prompts[:PROMPTS], prompts[PROMPTS:2 * PROMPTS, :1]], 1),
+        dtype=torch.long, device=DEVICE)
+    cfg32, m32 = upcast(cfg, model)
+    fa.reset_launch_counts()
+    out = {}
+    for dt, c, m in (("float32", cfg32, m32), ("bfloat16", cfg, model)):
+        whole, _ = lm.prefill(c, m, full, cache_len=s + 1)
+        _, cache = lm.prefill(c, m, full[:, :s], cache_len=s + 1)
+        step, _ = lm.decode_step(c, m, cache, full[:, s], s)
+        out[dt] = (whole, step)
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    err = rel(out["float32"][1], out["float32"][0])
+    finite = bool(torch.isfinite(out["float32"][1]).all())
+    emit(phase="mla_decode_vs_prefill", dtype="float32",
+         layers=cfg32.num_layers, position=s, rel_l2=err,
+         tol=MLA_DECODE_TOL,
+         max_abs=float((out["float32"][1] - out["float32"][0]).abs().max()),
+         bf16_rel_l2=rel(out["bfloat16"][1], out["bfloat16"][0]),
+         bf16_vs_f32_rel_l2=rel(out["bfloat16"][0], out["float32"][0])
+         if cfg32.num_layers == cfg.num_layers else "not measured (cut)",
+         finite=finite, **launches)
+    if not finite or err > MLA_DECODE_TOL or (
+            any(launches.values()) and not flash):
+        raise AssertionError(f"MLA decode off its prefill in f32: {err}; "
+                             f"flash launches {launches}")
+    del m32, out
+    torch.cuda.empty_cache()
+
+
+def mla_path():
+    """Serve minicpm3-4b at full width and depth: static generate and
+    ServeLoop, no flash kernel on any route; the decode-against-prefill
+    gate in f32; the serving metrics.  Returns the metrics."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+
+    cfg = get_config(MLA_ARCH)
+    if LM_REDUCED:
+        cfg = cfg.reduced()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(7),
+                    device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    emit(phase="mla_init", arch=cfg.name, layers=cfg.num_layers,
+         q_lora=cfg.q_lora_rank, kv_lora=cfg.kv_lora_rank,
+         qk_head=cfg.qk_nope_dim + cfg.qk_rope_dim,
+         v_head=cfg.v_head_dim, params=n_params,
+         param_count=cfg.param_count(),
+         weight_gb=sum(p.numel() * p.element_size()
+                       for p in model.parameters()) / 1e9,
+         seconds=time.perf_counter() - t0)
+    # param_count leaves out ln_f and MLA's two norm scales a layer
+    norms = cfg.d_model + cfg.num_layers * (cfg.q_lora_rank
+                                            + cfg.kv_lora_rank)
+    if n_params != cfg.param_count() + norms or (
+            not LM_REDUCED and (cfg.param_count(), cfg.num_layers)
+            != (MLA_PARAM_COUNT, 62)):
+        raise AssertionError(f"{cfg.name}: {n_params} parameters, "
+                             f"param_count {cfg.param_count()}")
+
+    prompts, launches, prefills, _ = serve_traffic(
+        cfg, model, fa.launch_counts, fa.reset_launch_counts,
+        "mla_main_path")
+    # minicpm3's value head (64) is narrower than its key head (96), so
+    # ops.attention takes the plain path; a CPU rehearsal's reduced config
+    # has 16 and 16 and takes the flash wrapper
+    flash = cfg.v_head_dim == cfg.qk_nope_dim + cfg.qk_rope_dim
+    if flash != LM_REDUCED or launches["flash_attention"] != (
+            cfg.num_layers * prefills if flash else 0):
+        raise AssertionError(f"MLA served with flash launches {launches}")
+    mla_decode_gate(cfg, model, prompts, flash)
+    toks = torch.as_tensor(prompts[:PROMPTS], dtype=torch.long,
+                           device=DEVICE)
+    rec = serving_metrics(cfg, model, toks, fa.launch_counts, "mla_serving")
+    if any(rec["kernel_launches_per_decode_step"].values()):
+        raise AssertionError("MLA decode launched a flash kernel")
+    return rec
+
+
+def mla_phases():
+    """Slice 5, MLA: minicpm3-4b served at full width and depth (no hand
+    kernel on its path: the reference's plain attention at D_v != D_qk).
+    Frees the model before returning."""
+    import gc
+    import torch
+    mla_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="mla_freed", device_gb=torch.cuda.memory_allocated() / 1e9)
+
+
 def ptxas_kernels(log, name_of) -> dict:
     """Registers and spill bytes from a ptxas log for each entry function
     that ``name_of(mangled name)`` names (None: left out)."""
@@ -3878,8 +4345,11 @@ def main() -> int:
     kernels += lm_phases()
     kernels += rwkv_phases()
     kernels += griffin_phases()
+    # 14.-15. MoE (dbrx-132b) and MLA (minicpm3-4b)
+    kernels += moe_phases()
+    mla_phases()
 
-    # 14. the card, the kernels line, and the result
+    # 16. the card, the kernels line, and the result
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

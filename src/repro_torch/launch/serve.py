@@ -4,12 +4,18 @@ reduced config of an architecture, with random weights from a seed.
     python -m repro_torch.launch.serve --arch granite-3-2b --mode static
     python -m repro_torch.launch.serve --arch rwkv6-1.6b
     python -m repro_torch.launch.serve --arch recurrentgemma-9b
+    python -m repro_torch.launch.serve --arch dbrx-132b    # MoE
+    python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b
+    python -m repro_torch.launch.serve --arch minicpm3-4b  # MLA
     python -m repro_torch.launch.serve --device cpu       # without a card
 
-Full-width serving goes through the library: ``serve.engine.generate``
-and ``serve.engine.ServeLoop`` on ``models.lm.init(cfg)`` of the full
-config (``chip_smoke.py`` serves granite-3-2b, rwkv6-1.6b and
-recurrentgemma-9b that way on the card).
+Every ``--arch`` but llama-3.2-vision-11b and whisper-tiny (not ported:
+``ROADMAP.md``) runs, on the card or with ``--device cpu``.  Full-width
+serving goes through the library: ``serve.engine.generate`` and
+``serve.engine.ServeLoop`` on ``models.lm.init(cfg)`` of the full config
+(``chip_smoke.py`` serves granite-3-2b, rwkv6-1.6b, recurrentgemma-9b,
+minicpm3-4b and the first 8 of dbrx-132b's 40 layers that way on the
+card).
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
-"""Decode-state containers: the KV cache of the GQA attention block, the
+"""Decode-state containers: the KV cache of the GQA attention block (and
+of the MoE block, whose attention is the same), MLA's latent cache, the
 ring-buffered cache of the local attention block, and the recurrent
 states of the RWKV-6 and RG-LRU blocks.
 
-The JAX package's ``models/cache.py`` for block kinds ``attn``,
-``rwkv``, ``recurrent`` and ``local_attn``.  The other caches (MLA
-latent, cross-attention) come with their blocks (``ROADMAP.md``).  Each
+The JAX package's ``models/cache.py`` for block kinds ``attn``, ``moe``,
+``rwkv``, ``recurrent`` and ``local_attn``.  The cross-attention caches
+come with their blocks (``ROADMAP.md``).  Each
 leaf has its own dtype: the KV caches take the caller's, the recurrent
 states are f32 whatever the caller passes, as in the JAX package.
 
@@ -20,7 +21,7 @@ import torch
 from ..configs.base import ModelConfig
 from . import griffin, rwkv
 
-PORTED_KINDS = ("attn", "rwkv", "recurrent", "local_attn")
+PORTED_KINDS = ("attn", "moe", "rwkv", "recurrent", "local_attn")
 
 
 def check_ported(cfg: ModelConfig, kind: str) -> None:
@@ -31,8 +32,10 @@ def check_ported(cfg: ModelConfig, kind: str) -> None:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (ROADMAP.md, queue 1: "
             f"LM stack, the rest); the port builds {PORTED_KINDS}")
-    if kind in ("attn", "local_attn") and (
-            cfg.attn_kind != "gqa" or cfg.pos_embedding == "learned"):
+    attention = {"attn": ("gqa", "mla"), "moe": ("gqa", "mla"),
+                 "local_attn": ("gqa",)}.get(kind)
+    if attention is not None and (cfg.attn_kind not in attention
+                                  or cfg.pos_embedding == "learned"):
         raise NotImplementedError(
             f"attention {cfg.attn_kind!r} with {cfg.pos_embedding!r} "
             "positions is not ported yet (ROADMAP.md, queue 1: LM stack, "
@@ -49,6 +52,18 @@ def attn_cache_init(cfg: ModelConfig, batch: int, cache_len: int,
 def attn_cache_axes():
     return {"k": "batch kv_seq kv_heads head_dim",
             "v": "batch kv_seq kv_heads head_dim"}
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, cache_len: int,
+                   dtype=torch.bfloat16, device=None):
+    return {"c_kv": torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, cache_len, cfg.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_cache_axes():
+    return {"c_kv": "batch kv_seq .", "k_rope": "batch kv_seq ."}
 
 
 def local_cache_init(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
@@ -76,6 +91,8 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int,
         return griffin.recurrent_state_init(cfg, batch, device)
     if kind == "local_attn":
         return local_cache_init(cfg, batch, dtype, device)
+    if cfg.attn_kind == "mla":
+        return mla_cache_init(cfg, batch, cache_len, dtype, device)
     return attn_cache_init(cfg, batch, cache_len, dtype, device)
 
 
@@ -87,4 +104,4 @@ def block_cache_axes(cfg: ModelConfig, kind: str):
         return griffin.recurrent_state_axes()
     if kind == "local_attn":
         return local_cache_axes()
-    return attn_cache_axes()
+    return mla_cache_axes() if cfg.attn_kind == "mla" else attn_cache_axes()

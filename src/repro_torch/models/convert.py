@@ -6,9 +6,10 @@ per repeat) and whose remainder layers are separate (``p["rem"]``).
 ``params_from_jax`` takes that tree as numpy arrays and returns the
 port's ``LM``, which then computes what the JAX model computes: each
 leaf is cast once to the dtype of its port parameter, so matrices to the
-compute dtype (the JAX package casts them at every use) and norm scales,
-the RWKV block's f32 leaves and its ``dec_b``, and the RG-LRU block's
-``conv_b`` and ``lam`` kept in f32.
+compute dtype (the JAX package casts them at every use) and norm scales
+(MLA's ``q_norm`` and ``kv_norm`` too), the MoE router, the RWKV block's
+f32 leaves and its ``dec_b``, and the RG-LRU block's ``conv_b`` and
+``lam`` kept in f32.
 ``params_to_jax`` is its inverse.
 """
 
@@ -31,6 +32,11 @@ _BLOCK_LEAVES = {
     "attn.wv": ("attn", "wv"), "attn.wo": ("attn", "wo"),
     "mlp.wi": ("mlp", "wi"), "mlp.wg": ("mlp", "wg"),
     "mlp.wo": ("mlp", "wo"),
+    **{f"attn.{n}": ("attn", n) for n in (
+        "wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wkv_b")},
+    "mlp.router": ("mlp", "router"),
+    **{f"mlp.{g}.{n}": ("mlp", g, n) for g in ("experts", "shared")
+       for n in ("wi", "wg", "wo")},
     **{f"rwkv.{n}": ("rwkv", n) for n in (
         "mu", "ddl_a", "ddl_b", "wr", "wk", "wv", "wg", "wo", "w0",
         "dec_a", "dec_b", "u", "ln_x", "mu_c", "ck", "cr", "cv")},

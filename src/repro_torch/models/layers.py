@@ -1,18 +1,19 @@
-"""Transformer building blocks: norms, RoPE, GQA attention, MLPs.
+"""Transformer building blocks: norms, RoPE, GQA attention, MLA, MLPs.
 
 The JAX package's ``models/layers.py`` in PyTorch, for the dense GQA
-families.  Each block is an ``nn.Module`` that holds its parameters; the
-functions keep the JAX package's names and take the module as ``p``.
+families and MLA (minicpm3-4b).  Each block is an ``nn.Module`` that
+holds its parameters; the functions keep the JAX package's names and take
+the module as ``p``.
 
 Weights.  The JAX package keeps f32 master weights and casts each one to
 ``cfg.compute_dtype`` at every use.  Serving needs no master copy, so the
 port holds every matrix in the compute dtype, cast once at load: the same
-operands at half the bytes in bf16.  Norm scales stay f32, as
-``norm_apply`` uses them.
+operands at half the bytes in bf16.  Norm scales (and MLA's ``q_norm``
+and ``kv_norm``) stay f32, as the norms use them.
 
 The local (ring-buffer) attention block's prefill and decode live in
 ``lm.py``, as in the JAX package, on ``_self_attend`` and
-``_decode_attend_local`` from here.  Not ported (``ROADMAP.md``): MLA,
+``_decode_attend_local`` from here.  Not ported (``ROADMAP.md``):
 cross-attention and ``_decode_attend_flash``, which needs a mesh.
 """
 
@@ -187,7 +188,7 @@ def attn_decode(cfg: ModelConfig, p: Attention, x, cache, *, pos,
 
 def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
                   pos: torch.Tensor) -> None:
-    """cache (B, S, KV, hd) ← new (B, 1, KV, hd) at per-batch pos, in place.
+    """cache (B, S, ...) ← new (B, 1, ...) at per-batch pos, in place.
 
     The JAX package rewrites the whole cache through a one-hot,
     ``cache * (1 - onehot) + onehot * new``, which for finite values is
@@ -196,7 +197,7 @@ def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
     b, s = cache.shape[:2]
     rows = torch.arange(b, device=cache.device)
     idx = pos.clamp(max=s - 1)
-    keep = (pos >= s)[:, None, None]
+    keep = (pos >= s).view((b,) + (1,) * (cache.dim() - 2))
     cache[rows, idx] = torch.where(keep, cache[rows, idx],
                                    new[:, 0].to(cache.dtype))
 
@@ -228,6 +229,124 @@ def _decode_attend_local(q, k, v, pos, window, kpos=None):
     pda = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bgrs,bsgk->bgrk", pda, v)
     return o.reshape(b, 1, h, hd)
+
+
+# ---------------------------------------------------------------------------
+# MLA (MiniCPM3 / DeepSeek-style latent attention)
+# ---------------------------------------------------------------------------
+
+
+class MLA(nn.Module):
+    """wq_a (d, q_lora), q_norm (q_lora,) f32, wq_b (q_lora, H, nope +
+    rope), wkv_a (d, kv_lora + rope), kv_norm (kv_lora,) f32, wkv_b
+    (kv_lora, H, nope + v_head), wo (H, v_head, d): the JAX layout."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, h = cfg.d_model, cfg.num_heads
+        qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+        nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+
+        def ones(n):
+            return nn.Parameter(torch.ones((n,), dtype=torch.float32,
+                                           device=device),
+                                requires_grad=False)
+
+        self.wq_a = _weight((d, qr), cfg, device)
+        self.q_norm = ones(qr)
+        self.wq_b = _weight((qr, h, nope + rope), cfg, device)
+        self.wkv_a = _weight((d, kr + rope), cfg, device)
+        self.kv_norm = ones(kr)
+        self.wkv_b = _weight((kr, h, nope + vd), cfg, device)
+        self.wo = _weight((h, vd, d), cfg, device)
+
+
+mla_init = MLA
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + 1e-6) \
+        * scale
+    return y.to(x.dtype)
+
+
+def _mla_qkv_latent(cfg, p: MLA, x, positions):
+    """q_nope, q_rope (B, S, H, ·); the latent c_kv (B, S, kv_lora) and the
+    head-shared k_rope (B, S, rope), RoPE at ``positions``."""
+    nope, kr = cfg.qk_nope_dim, cfg.kv_lora_rank
+    cq = _rms(x @ p.wq_a.to(x.dtype), p.q_norm)
+    q = _proj(cq, p.wq_b)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    ckv_full = x @ p.wkv_a.to(x.dtype)
+    c_kv = _rms(ckv_full[..., :kr], p.kv_norm)
+    k_rope = apply_rope(ckv_full[..., None, kr:], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(cfg, p: MLA, x, positions):
+    """Per-head K and V materialised from the latents, then causal
+    attention.  D_v (v_head) differs from D_qk (nope + rope), so
+    ``ops.attention`` takes the plain path on every device, as the
+    reference's ``ops`` does: the flash kernels compute D_v = D_qk only.
+    Returns (out, c_kv, k_rope)."""
+    nope = cfg.qk_nope_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(cfg, p, x, positions)
+    kv = _proj(c_kv, p.wkv_b)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(
+        k_rope.shape[:2] + (cfg.num_heads, cfg.qk_rope_dim))], dim=-1)
+    o = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2), causal=True)
+    return _out(o.transpose(1, 2), p.wo), c_kv, k_rope
+
+
+def mla_apply(cfg: ModelConfig, p: MLA, x, *, positions):
+    """Full-sequence MLA (train / prefill)."""
+    return _mla_attend(cfg, p, x, positions)[0]
+
+
+def mla_prefill(cfg: ModelConfig, p: MLA, x, *, positions, cache):
+    """Prefill: writes the latents into the first S rows of ``cache``
+    ({"c_kv" (B, cache_len, kv_lora), "k_rope" (B, cache_len, rope)}, zero
+    beyond) and returns (out, cache)."""
+    out, c_kv, k_rope = _mla_attend(cfg, p, x, positions)
+    cache["c_kv"][:, :c_kv.shape[1]] = c_kv
+    cache["k_rope"][:, :k_rope.shape[1]] = k_rope
+    return out, cache
+
+
+def mla_decode(cfg: ModelConfig, p: MLA, x, cache, *, pos):
+    """Absorbed-weight MLA decode: attention runs in the latent space over
+    the (c_kv, k_rope) cache, which holds kv_lora + rope values a token.
+    Writes the new latents into ``cache`` in place (the reference's
+    one-hot rewrite, the same values) and returns (out, cache)."""
+    b = x.shape[0]
+    cd = x.dtype
+    pos_arr = torch.as_tensor(pos, device=x.device).expand(b)
+    nope = cfg.qk_nope_dim
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv_latent(
+        cfg, p, x, pos_arr[:, None])
+    wkv_b = p.wkv_b.to(cd)
+    wk, wv = wkv_b[..., :nope], wkv_b[..., nope:]
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wk)    # (B, 1, H, r)
+    _scatter_time(cache["c_kv"], c_kv_new, pos_arr)
+    _scatter_time(cache["k_rope"], k_rope_new, pos_arr)
+    c_kv, k_rope = cache["c_kv"].to(cd), cache["k_rope"].to(cd)
+    scale = 1.0 / ((nope + cfg.qk_rope_dim) ** 0.5)
+    logits = (torch.einsum("bthr,bsr->bhts", q_lat, c_kv)
+              + torch.einsum("bthk,bsk->bhts", q_rope, k_rope)
+              ).float() * scale
+    kpos = torch.arange(c_kv.shape[1], device=x.device)
+    logits = logits.masked_fill(kpos > pos_arr[:, None, None, None],
+                                -torch.inf)
+    w = torch.softmax(logits, dim=-1).to(cd)
+    ctx_lat = torch.einsum("bhts,bsr->bthr", w, c_kv)     # latent context
+    v_ctx = torch.einsum("bthr,rhk->bthk", ctx_lat, wv)   # (B, 1, H, v)
+    return _out(v_ctx, p.wo), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,18 @@
 """The decoder stack: init, forward, prefill and one-token decode.
 
 The JAX package's ``models/lm.py`` in PyTorch for the dense GQA families
-(block kind ``attn``: granite-3-2b, chatglm3-6b, nemotron-4-340b),
-RWKV-6 (block kind ``rwkv``: rwkv6-1.6b) and the Griffin hybrid (block
-kinds ``recurrent`` and ``local_attn``: recurrentgemma-9b).  The other
-block kinds (``moe``, ``cross_attn``, ``decoder``), MLA, learned
-positions and the encoder are not ported yet: building a config that
-needs them raises ``NotImplementedError`` naming ``ROADMAP.md``.
+(block kind ``attn``: granite-3-2b, chatglm3-6b, nemotron-4-340b), MLA
+(``attn_kind="mla"``: minicpm3-4b), the MoE families (block kind
+``moe``: dbrx-132b, llama4-maverick-400b-a17b), RWKV-6 (block kind
+``rwkv``: rwkv6-1.6b) and the Griffin hybrid (block kinds ``recurrent``
+and ``local_attn``: recurrentgemma-9b).  The other block kinds
+(``cross_attn``, ``decoder``), learned positions and the encoder are not
+ported yet: building a config that needs them raises
+``NotImplementedError`` naming ``ROADMAP.md``.
+
+A ``moe`` block routes with capacity drops in ``forward`` and
+``prefill`` and dropless at a decode step, as the reference does
+(``models/moe.py``).
 
 A ``local_attn`` prefill runs the windowed attention through the flash
 kernel and keeps the last ``window`` K/V in a ring buffer (slot = time %
@@ -38,7 +44,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
 from . import cache as cache_lib
-from . import griffin, layers, rwkv
+from . import griffin, layers, moe, rwkv
 
 
 def layer_slots(cfg: ModelConfig) -> List[Tuple[str, str, Optional[int]]]:
@@ -59,8 +65,10 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 
 class Block(nn.Module):
-    """``attn`` and ``local_attn``: ln1, attn, ln2, mlp.  ``rwkv``: ln1,
-    rwkv, ln2.  ``recurrent``: ln1, rec, ln2, mlp."""
+    """``attn`` and ``local_attn``: ln1, attn, ln2, mlp.  ``moe``: ln1,
+    attn, ln2, mlp (a ``moe.MoE``).  ``rwkv``: ln1, rwkv, ln2.
+    ``recurrent``: ln1, rec, ln2, mlp.  attn is ``layers.MLA`` under
+    ``attn_kind="mla"``, else ``layers.Attention``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None):
         super().__init__()
@@ -72,16 +80,21 @@ class Block(nn.Module):
             return
         if kind == "recurrent":
             self.rec = griffin.Recurrent(cfg, device=device)
+        elif cfg.attn_kind == "mla":
+            self.attn = layers.mla_init(cfg, device=device)
         else:
             self.attn = layers.attn_init(cfg, device=device)
         self.ln2 = layers.norm_init(cfg, device=device)
-        self.mlp = layers.mlp_init(cfg, device=device)
+        if kind == "moe":
+            self.mlp = moe.moe_init(cfg, device=device)
+        else:
+            self.mlp = layers.mlp_init(cfg, device=device)
 
 
 class LM(nn.Module):
     """embed (V, d), head (d, V) unless tied, ln_f, and one ``Block`` per
-    layer.  Matrices in ``cfg.compute_dtype``, norm scales and the RWKV
-    and RG-LRU blocks' f32 leaves in f32."""
+    layer.  Matrices in ``cfg.compute_dtype``; norm scales, the MoE
+    router and the RWKV and RG-LRU blocks' f32 leaves in f32."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -123,6 +136,19 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         if blk.kind == "rwkv":
             _fill_rwkv(cfg, blk.rwkv, gen)
             continue
+        # the GQA dense blocks below keep their draw order, so a seed
+        # gives the dense models the weights it gave them before
+        if blk.kind == "moe" or cfg.attn_kind == "mla":
+            _fill_attention(cfg, blk.attn, gen)
+            if blk.kind == "moe":
+                moe.fill(cfg, blk.mlp, lambda w, fan_in: _fill(w, fan_in,
+                                                               gen))
+            else:
+                for w, fan_in in ((blk.mlp.wi, d), (blk.mlp.wo, cfg.d_ff)):
+                    _fill(w, fan_in, gen)
+                if cfg.mlp_kind == "swiglu":
+                    _fill(blk.mlp.wg, d, gen)
+            continue
         if blk.kind == "recurrent":
             _fill_recurrent(cfg, blk.rec, gen)
             _fill(blk.mlp.wi, d, gen)
@@ -134,6 +160,19 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             _fill(blk.mlp.wg, d, gen)
         _fill(blk.mlp.wo, cfg.d_ff, gen)
     return model
+
+
+def _fill_attention(cfg: ModelConfig, p, gen) -> None:
+    """GQA's or MLA's matrices with the JAX ``attn_init``'s or
+    ``mla_init``'s fan-ins; MLA's two norms keep their ones."""
+    d, h = cfg.d_model, cfg.num_heads
+    if cfg.attn_kind == "mla":
+        fans = ((p.wq_a, d), (p.wq_b, cfg.q_lora_rank), (p.wkv_a, d),
+                (p.wkv_b, cfg.kv_lora_rank), (p.wo, h * cfg.v_head_dim))
+    else:
+        fans = ((p.wq, d), (p.wk, d), (p.wv, d), (p.wo, h * cfg.head_dim))
+    for w, fan_in in fans:
+        _fill(w, fan_in, gen)
 
 
 def _fill_rwkv(cfg: ModelConfig, p: rwkv.RWKV, gen) -> None:
@@ -186,8 +225,11 @@ def _recurrent_block(cfg: ModelConfig, p: Block, x, c):
     return _mlp_half(cfg, p, x + ro), c
 
 
-def _mlp_half(cfg: ModelConfig, p: Block, x):
+def _mlp_half(cfg: ModelConfig, p: Block, x, dropless: bool = False):
+    """ln2 and the MLP, or the MoE (dropless at a decode step)."""
     h2 = layers.norm_apply(cfg, p.ln2, x)
+    if p.kind == "moe":
+        return x + moe.moe_apply(cfg, p.mlp, h2, dropless=dropless)[0]
     return x + layers.mlp_apply(cfg, p.mlp, h2)
 
 
@@ -199,10 +241,13 @@ def block_apply(cfg: ModelConfig, p: Block, x, *, positions):
                                            device=x.device)
         block = _rwkv_block if p.kind == "rwkv" else _recurrent_block
         return block(cfg, p, x, state)[0]
-    window = cfg.window if p.kind == "local_attn" else None
     h = layers.norm_apply(cfg, p.ln1, x)
-    x = x + layers.attn_apply(cfg, p.attn, h, positions=positions,
-                              window=window)
+    if cfg.attn_kind == "mla":
+        x = x + layers.mla_apply(cfg, p.attn, h, positions=positions)
+    else:
+        window = cfg.window if p.kind == "local_attn" else None
+        x = x + layers.attn_apply(cfg, p.attn, h, positions=positions,
+                                  window=window)
     return _mlp_half(cfg, p, x)
 
 
@@ -215,7 +260,10 @@ def block_prefill(cfg: ModelConfig, p: Block, x, *, positions, cache):
     if p.kind == "recurrent":
         return _recurrent_block(cfg, p, x, cache)
     h = layers.norm_apply(cfg, p.ln1, x)
-    if p.kind == "local_attn":
+    if cfg.attn_kind == "mla":
+        att, c = layers.mla_prefill(cfg, p.attn, h, positions=positions,
+                                    cache=cache)
+    elif p.kind == "local_attn":
         att, c = _local_prefill(cfg, p.attn, h, positions, cache)
     else:
         att, c = layers.attn_prefill(cfg, p.attn, h, positions=positions,
@@ -267,11 +315,13 @@ def block_decode(cfg: ModelConfig, p: Block, x, c, *, pos):
     if p.kind == "recurrent":
         return _recurrent_block(cfg, p, x, c)
     h = layers.norm_apply(cfg, p.ln1, x)
-    if p.kind == "local_attn":
+    if cfg.attn_kind == "mla":
+        att, c = layers.mla_decode(cfg, p.attn, h, c, pos=pos)
+    elif p.kind == "local_attn":
         att, c = _local_decode(cfg, p.attn, h, c, pos)
     else:
         att, c = layers.attn_decode(cfg, p.attn, h, c, pos=pos)
-    return _mlp_half(cfg, p, x + att), c
+    return _mlp_half(cfg, p, x + att, dropless=True), c
 
 
 # ---------------------------------------------------------------------------

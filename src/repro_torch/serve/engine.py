@@ -10,7 +10,9 @@ cache leaf's "batch" dimension comes from the cache's logical axes
 
 Both run on the device of the model's weights.  On CUDA every prefill
 of a GQA model goes through the hand-written flash-attention kernel, in
-each layer (a Griffin model's in each local-attention layer); an RWKV-6
+each layer (a Griffin model's in each local-attention layer, an MoE
+model's in each layer; an MLA model's attention, whose value head is
+narrower than its key head, runs the plain attention); an RWKV-6
 model runs the hand-written WKV6 kernel in each layer of every prefill
 and every decode step.  The RWKV and RG-LRU states, unlike a KV cache,
 are f32 whatever the cache dtype: slot surgery copies them without

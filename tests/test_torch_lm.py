@@ -1,9 +1,13 @@
 """The port's LM stack and serving vs the JAX package's, on the CPU.
 
 Reduced configs (2 layers, d_model 64, 4 heads of 16, 2 kv heads, vocab
-512) of the three dense GQA families the port builds: granite-3-2b
-(SwiGLU), chatglm3-6b (RoPE on half the head dim) and nemotron-4-340b
-(squared ReLU).  The JAX package's ``lm.init`` weights go through
+512) of the dense GQA families the port builds: granite-3-2b (SwiGLU),
+chatglm3-6b (RoPE on half the head dim) and nemotron-4-340b (squared
+ReLU); of the MoE families: dbrx-132b (every layer MoE, 4 experts top 2,
+group 64) and llama4-maverick-400b-a17b (4 layers, attn and moe
+alternating, top 1 with a shared expert); and of MLA: minicpm3-4b
+(q_lora and kv_lora 16, nope 8, rope 8, v_head 16).  The JAX package's
+``lm.init`` weights go through
 ``convert.params_from_jax``, and both packages compute in float32:
 logits agree to 1e-4 (summation order through two layers; logits are
 O(1)).  Greedy tokens are compared in float32 too, where the two
@@ -31,7 +35,12 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.serve import engine as tserve  # noqa: E402
 
-ARCHS = ["granite-3-2b", "chatglm3-6b", "nemotron-4-340b"]
+ARCHS = ["granite-3-2b", "chatglm3-6b", "nemotron-4-340b", "dbrx-132b",
+         "llama4-maverick-400b-a17b", "minicpm3-4b"]
+MOE_ARCHS = ["dbrx-132b", "llama4-maverick-400b-a17b"]
+# generate and ServeLoop: one model of each kind of block
+SERVE_ARCHS = ["granite-3-2b", "dbrx-132b", "llama4-maverick-400b-a17b",
+               "minicpm3-4b"]
 # rwkv6-1.6b and recurrentgemma-9b are ported too: tests/test_torch_rwkv.py,
 # tests/test_torch_griffin.py
 UNPORTED = [a for a in ARCH_IDS
@@ -148,8 +157,10 @@ def test_prefill_logits_and_cache_match_reference(arch, rng):
                                cache_len=20)
     got, cache = tlm.prefill(tcfg, model, _t(toks), cache_len=20)
     _close(got, want)
-    for n in ("k", "v"):
-        _close(cache["blocks"]["b0"][n], jcache["blocks"]["b0"][n])
+    for key, leaves in jcache["blocks"].items():
+        assert set(cache["blocks"][key]) == set(leaves)
+        for n, leaf in leaves.items():
+            _close(cache["blocks"][key][n], leaf)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -170,8 +181,10 @@ def test_decode_logits_match_reference(arch, rng):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_consistency(arch, rng):
     """Prefill + decode == the teacher-forced forward, within the JAX
-    package's own tolerance (tests/test_models.py)."""
+    package's own tolerance (tests/test_models.py), which also sets the
+    MoE capacity factor to 64 so that no token drops in either."""
     _, _, tcfg, model = _models(arch)
+    tcfg = dataclasses.replace(tcfg, capacity_factor=64.0)
     b, s, extra = 2, 16, 3
     toks = _t(_tokens(rng, tcfg, b, s + extra))
     full = tlm.forward(tcfg, model, toks)
@@ -211,8 +224,9 @@ def test_cache_axes_match_reference():
 # -- serving -----------------------------------------------------------------
 
 
-def test_generate_matches_reference(rng):
-    jcfg, params, tcfg, model = _models("granite-3-2b")
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_generate_matches_reference(arch, rng):
+    jcfg, params, tcfg, model = _models(arch)
     prompts = rng.integers(2, tcfg.vocab_size, (3, 8)).astype(np.int32)
     want = jserve.generate(jcfg, params, jnp.asarray(prompts),
                            max_new_tokens=6)
@@ -244,13 +258,14 @@ def test_temperature_sampling_uses_generator(rng):
     assert runs[0].min() >= 0 and runs[0].max() < tcfg.vocab_size
 
 
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
 @pytest.mark.parametrize("slots,cache_len,n,plen,max_new", [
     (3, 32, 2, 8, 6), (2, 24, 5, 6, 4)])
 def test_serve_loop_matches_reference(slots, cache_len, n, plen, max_new,
-                                      rng):
+                                      arch, rng):
     """Slot surgery, waves and oversubscription: every request's tokens
     equal the JAX package's ServeLoop's (bf16 cache, as there)."""
-    jcfg, params, tcfg, model = _models("granite-3-2b")
+    jcfg, params, tcfg, model = _models(arch)
     prompts = rng.integers(2, tcfg.vocab_size, (n, plen)).astype(np.int32)
     loops = (jserve.ServeLoop(jcfg, params, num_slots=slots,
                               cache_len=cache_len),
@@ -315,11 +330,11 @@ def test_unported_families_raise(arch):
         tlm.init_cache(cfg, 1, 8, device=CPU)
 
 
-def test_entry_points_need_cuda_without_device():
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_entry_points_need_cuda_without_device(arch):
     if torch.cuda.is_available():
         pytest.skip("a card is present: device=None selects it")
-    cfg = tget("granite-3-2b").reduced()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tlm.init(cfg)
+        tlm.init(tget(arch))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tlaunch.main([])
+        tlaunch.main(["--arch", arch])
