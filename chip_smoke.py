@@ -3,10 +3,12 @@
 path, LM serving (granite-3-2b at full width), RWKV-6 serving
 (rwkv6-1.6b at full width and depth), Griffin serving
 (recurrentgemma-9b at full width and depth), MoE serving (dbrx-132b at
-full width, 8 of its 40 layers) and MLA serving (minicpm3-4b at full
-width and depth), every hand-written kernel against its plain version.
+full width, 8 of its 40 layers), MLA serving (minicpm3-4b at full width
+and depth), vision serving (llama-3.2-vision-11b at full width and
+depth) and audio serving (whisper-tiny at full width and depth), every
+hand-written kernel against its plain version.
 
-    python3 chip_smoke.py            # everything (about 14 minutes)
+    python3 chip_smoke.py            # everything (about 15 minutes)
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
@@ -122,10 +124,14 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      256, window 2048) in bf16 (also in the model's memory) and in f32 at
      S 1024, a ragged S = 777 full at D 256, nemotron-4-340b's D 192 (H
      96, Hkv 8, S 1024), ragged D 192 cases (windowed; the model's
-     memory), and B 1 x H 32 x S 16384 causal (with its device time
-     beside SDPA's); each case within an elementwise and a relative-L2
-     limit, and a planted fault (one key tile dropped) must break both at
-     D 64, D 128, recurrentgemma's D 256 and its f32 case;
+     memory), whisper-tiny's encoder (B 4, H = Hkv = 6, S 1500, D 64,
+     unmasked; also in the model's memory) and decoder self-attention (S
+     448, causal), llama-3.2-vision-11b's prefill (B 4, H 32, Hkv 8, S
+     1024, D 128, causal), and B 1 x H 32 x S 16384 causal (with its
+     device time beside SDPA's); each case within an elementwise and a
+     relative-L2 limit, and a planted fault (one key tile dropped) must
+     break both at D 64, D 128, recurrentgemma's D 256 and its f32 case,
+     whisper's encoder and vision's prefill;
   7. LM serving: granite-3-2b (40 layers, d_model 2048, 2.53 B
      parameters, random weights from seed 0, bf16) through ``generate``
      (4 prompts x 1024 tokens, 32 new) and ``ServeLoop`` (4 slots, 8 such
@@ -226,7 +232,40 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      position 1024 (absorbed latent attention) against a prefill of 1025
      tokens (K and V materialised) within 1e-4 relative L2, with the bf16
      distances beside it; the serving metrics;
- 16. a JSON line with every kernel; the last line is
+ 16. vision serving: llama-3.2-vision-11b (40 layers: 8 x (4 attn, 1
+     tanh-gated cross_attn); d_model 4096, 32 heads, 8 kv heads of 128,
+     d_ff 14336, vocab 128,256; param_count 9,791,930,368; 19.6 GB in
+     bf16; random from seed 8, every gate and gate_mlp drawn in [0.5,
+     1.5) from the seed, since the init's 0 would hide the cross path),
+     each request with its own image stub (1601 x 4096, N(0, 1) from the
+     seed), through the LM traffic; ``launch_counts["flash_attention"]``
+     and its tensor-core count are 32 x the prefills (the self layers;
+     the cross calls, 1024 queries against 1601 image tokens, run the
+     plain attention, as in the reference), none at decode; tokens as
+     above; the bf16 prefill logits against mha_ref, with the route of
+     every attention call, a dropped key tile in every flash call beside
+     it; the serving metrics with the prefill's device time split into
+     GEMMs, flash, the plain (cross) attention and the rest; then, the
+     model freed, its first superblock (4 attn + 1 cross_attn layers)
+     drawn anew from the seed (bit sums checked equal), upcast to f32:
+     the f32 gate (1e-4, a dropped tile above it), its wave on the
+     CUDA-core kernel once a self layer;
+ 17. audio serving: whisper-tiny (4 decoder layers and a 4-layer
+     encoder over 1500 frames, d_model 384, 6 heads of 64, LayerNorm,
+     GELU, tied embeddings, learned positions; param_count 49,600,896;
+     seed 9, frame stubs from the seed) through the LM traffic at
+     448-token prompts, so each prefill's cross calls (448 against 1500)
+     run the plain attention and its 4 encoder (unmasked, S 1500) and 4
+     self layers the tensor-core kernel: 8 launches a prefill, none at
+     decode; tokens; the logit gate in bf16 and on the whole model
+     upcast to f32, each with every call's route; the serving metrics;
+     then the tensor-core kernel's times at vision's prefill shape (B 4,
+     H 32, Hkv 8, S 1024, D 128, causal) and whisper's encoder (B 4, H =
+     Hkv = 6, S 1500, D 64, unmasked); ``attention_vs_plain`` (phase 6)
+     holds the kernel at both, in the model's memory too, and at
+     whisper's decoder self-attention (S 448, causal), with a dropped key
+     tile that must fail at both new shapes;
+ 18. a JSON line with every kernel; the last line is
      ``{"ok": true, "device": {...}}``.
 
 Each earlier JSON line carries the card's name and power limit and the
@@ -803,11 +842,13 @@ def kernel_device_ms(fn, name="", reps=20, warmup=5):
         e.count / reps)) for e in evs) / 1e3
 
 
-def profiled(fn, warmup=2):
+def profiled(fn, warmup=2, tree=False):
     """(wall seconds, the profiler's table) of one call of ``fn``: the
     first ``warmup`` calls run under the profiler but are not kept, since
     it misses launches right after it starts (as in
-    ``kernel_device_ms``); then one call is recorded and timed."""
+    ``kernel_device_ms``); then one call is recorded and timed.  With
+    ``tree`` also the recorded call's events, each CPU op with the
+    kernels it launched and its children (``marked_kernels``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
@@ -823,7 +864,53 @@ def profiled(fn, warmup=2):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         prof.step()
+    if tree:
+        return wall, prof.key_averages(), prof.events()
     return wall, prof.key_averages()
+
+
+PLAIN_ATTENTION = "plain_attention"
+
+
+class plain_attention_marked:
+    """Within the block each call of ``ref.attention_ref`` (the plain
+    attention, which ``ops.attention`` runs where S != Skv: the cross
+    calls) runs inside a profiler range named PLAIN_ATTENTION, so that
+    ``marked_kernels`` finds the kernels it launched.  The range adds
+    only host time, and only where a profile is recorded."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ref
+        self.saved = ref.attention_ref
+
+        def marked(*args, **kwargs):
+            with torch.profiler.record_function(PLAIN_ATTENTION):
+                return self.saved(*args, **kwargs)
+
+        ref.attention_ref = marked
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+        ref.attention_ref = self.saved
+
+
+def marked_kernels(events, name):
+    """(kernel name, device us) of every kernel launched inside the
+    profiler ranges named ``name`` (on the host side), their children's
+    included."""
+    from torch.autograd import DeviceType
+    out = []
+
+    def walk(e):
+        out.extend((k.name, k.duration) for k in e.kernels)
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in events:
+        if e.name == name and e.device_type == DeviceType.CPU:
+            walk(e)
+    return out
 
 
 def device_share(name, fn):
@@ -1573,11 +1660,14 @@ def candidates_vs_plain(p, semiring, errs, gen, what, q=2):
             errs.exact("bsr_spmv_compact", got, want, tag)
 
 
-def launch_blocks(calls):
+def launch_blocks(calls, attempts=3):
     """Each call's kernel launch as torch.profiler's trace records it:
     (its name, block threads, registers a thread), in call order.  Two
     rounds run under the profiler, which may miss launches right after it
-    starts; the last round is read."""
+    starts; the last round is read.  A trace that holds fewer launches
+    than one round (the profiler on the card now and then drops most of
+    its device events) is taken again, ``attempts`` times in all, as in
+    ``device_events``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1586,23 +1676,27 @@ def launch_blocks(calls):
             fn()
             torch.cuda.synchronize()
     round_()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        round_()
-        round_()
-    TUNE_TRACE.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(TUNE_TRACE))
-    events = json.loads(TUNE_TRACE.read_text())["traceEvents"]
-    TUNE_TRACE.unlink()
-    kern = sorted((e for e in events if e.get("cat") == "kernel"
-                   and "_compact_kernel<" in e.get("name", "")),
-                  key=lambda e: e["ts"])
-    if len(kern) < len(calls):
-        raise AssertionError(f"the profiler recorded {len(kern)} compacted "
-                             f"launches of {2 * len(calls)}")
-    return [(e["name"], int(e["args"]["block"][0]),
-             e["args"].get("registers per thread"))
-            for e in kern[-len(calls):]]
+    recorded = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            round_()
+            round_()
+        TUNE_TRACE.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(TUNE_TRACE))
+        events = json.loads(TUNE_TRACE.read_text())["traceEvents"]
+        TUNE_TRACE.unlink()
+        kern = sorted((e for e in events if e.get("cat") == "kernel"
+                       and "_compact_kernel<" in e.get("name", "")),
+                      key=lambda e: e["ts"])
+        recorded.append(len(kern))
+        if len(kern) >= len(calls):
+            return [(e["name"], int(e["args"]["block"][0]),
+                     e["args"].get("registers per thread"))
+                    for e in kern[-len(calls):]]
+    raise AssertionError(f"the profiler recorded {recorded} compacted "
+                         f"launches of {2 * len(calls)} in {attempts} "
+                         f"traces")
 
 
 def tune_on_plan(proc, variant, fused, errs):
@@ -2459,8 +2553,20 @@ def attention_vs_plain(gen):
          True, 300),
         ("D=192 ragged S=100 full, model layout bf16", 2, 8, 8, 100, 192,
          bf16, False, None, True),
+        # whisper-tiny's encoder (MHA: group 1, D 64, unmasked, S 1500, not
+        # a multiple of the tile) and its decoder's self-attention at its
+        # 448-token prompts; llama-3.2-vision-11b's prefill (group 4, D 128)
+        (WHISPER_ENCODER_CASE, PROMPTS, 6, 6, WHISPER_ENCODER_SEQ, 64, bf16,
+         False, None),
+        ("whisper encoder, model layout (B,S,H,D) bf16", PROMPTS, 6, 6,
+         WHISPER_ENCODER_SEQ, 64, bf16, False, None, True),
+        ("whisper decoder self S=448 causal, model layout bf16", PROMPTS, 6,
+         6, WHISPER_PROMPT_LEN, 64, bf16, True, None, True),
+        (VISION_PREFILL_CASE, PROMPTS, 32, 8, s, 128, bf16, True, None),
     ]
     fault_at = {"granite prefill bf16": "tensor_cores",
+                WHISPER_ENCODER_CASE: "tensor_cores",
+                VISION_PREFILL_CASE: "tensor_cores",
                 "D=128 chatglm3 bf16": "tensor_cores",
                 "recurrentgemma prefill D=256 window 2048 bf16":
                     "tensor_cores",
@@ -2505,15 +2611,15 @@ def attention_vs_plain(gen):
     return worst, errs
 
 
-def sdpa_call(q, k, v, window=None):
-    """``scaled_dot_product_attention`` on the same inputs, causal (under a
-    window: a boolean mask of the kept pairs): the yardstick, never called
-    by the port."""
+def sdpa_call(q, k, v, window=None, causal=True):
+    """``scaled_dot_product_attention`` on the same inputs, causal or not
+    (under a window: a boolean mask of the kept causal pairs): the
+    yardstick, never called by the port."""
     import torch
     import torch.nn.functional as F
     if window is None:
         return lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)
+            q, k, v, is_causal=causal, enable_gqa=True)
     s = q.shape[2]
     qp = torch.arange(s, device=q.device)[:, None]
     kp = torch.arange(s, device=q.device)[None]
@@ -2595,9 +2701,9 @@ class ops_swapped:
         setattr(ops, self.name, self.saved)
 
 
-def teacher_forced_logits(cfg, model, prompt, forced):
+def teacher_forced_logits(cfg, model, prompt, forced, extras=None):
     """The next-token logits after ``prompt`` and the ``forced`` tokens,
-    batch 1.  A MoE model takes the served path, a prefill of the prompt
+    batch 1 (``extras``: its frontend stubs, batch 1).  A MoE model takes the served path, a prefill of the prompt
     and a decode step a token: a forward over prompt + t tokens would
     group them as one prompt plus t remainder tokens, whose MoE output is
     their input (the reference's quirk).  The others take ``forward``."""
@@ -2607,7 +2713,7 @@ def teacher_forced_logits(cfg, model, prompt, forced):
     if "moe" not in lm.layer_kinds(cfg):
         prefix = np.concatenate([prompt, forced])[None]
         return lm.forward(cfg, model, torch.as_tensor(
-            prefix, device=DEVICE))[0, -1].float()
+            prefix, device=DEVICE), extras=extras)[0, -1].float()
     n = len(prompt)
     logits, cache = lm.prefill(cfg, model, torch.as_tensor(
         prompt[None], dtype=torch.long, device=DEVICE),
@@ -2618,10 +2724,11 @@ def teacher_forced_logits(cfg, model, prompt, forced):
     return logits[0].float()
 
 
-def check_tokens(cfg, model, prompts, static, reqs):
+def check_tokens(cfg, model, prompts, static, reqs, stubs=None):
     """Requests that shared a wave with the static batch must give its
     tokens; a flip passes only where the two candidates' logits tie
-    within FLIP_TOL (``teacher_forced_logits`` of the common prefix)."""
+    within FLIP_TOL (``teacher_forced_logits`` of the common prefix, with
+    the request's own frontend stubs, row i of ``stubs``)."""
     import numpy as np
     flips = []
     prompt_len = prompts.shape[1]
@@ -2633,8 +2740,9 @@ def check_tokens(cfg, model, prompts, static, reqs):
             continue
         t = next(j for j, (a, b) in enumerate(zip(r.generated, want))
                  if a != b)
-        logits = teacher_forced_logits(cfg, model, prompts[i],
-                                       np.asarray(want[:t], np.int64))
+        logits = teacher_forced_logits(
+            cfg, model, prompts[i], np.asarray(want[:t], np.int64),
+            None if stubs is None else rows(stubs, i, i + 1))
         gap = float((logits[want[t]] - logits[r.generated[t]]).abs())
         flips.append({"request": i, "at": t, "gap": gap})
         if gap > FLIP_TOL:
@@ -2645,6 +2753,11 @@ def check_tokens(cfg, model, prompts, static, reqs):
                 min(r.generated) < 0 or max(r.generated) >= cfg.vocab_size:
             raise AssertionError(f"request {r.rid} is malformed")
     return flips
+
+
+def rows(stubs, lo, hi):
+    """Rows lo .. hi - 1 of every frontend stub in ``stubs``."""
+    return {k: v[lo:hi] for k, v in stubs.items()}
 
 
 def free_device_bytes() -> int:
@@ -2768,26 +2881,38 @@ def decode_idle_share(cfg, model, cache, tok, pos, phase):
 
 
 def serve_traffic(cfg, model, counts, reset, phase, prompt_len=PROMPT_LEN,
-                  cache_len=None):
+                  cache_len=None, stubs=None):
     """The main path of a serving slice: ``generate`` on PROMPTS prompts
     of ``prompt_len`` random tokens with NEW_TOKENS new ones, then
     SERVE_REQUESTS such requests through SERVE_SLOTS ``ServeLoop`` slots
-    (``cache_len``, by default prompt_len + NEW_TOKENS).  The kernel
-    counts are set to 0 just before and read just after.  Checks the
-    static batch's shape and the first wave's tokens; returns (prompts,
-    launches, prefills, decode steps)."""
+    (``cache_len``, by default prompt_len + NEW_TOKENS).  ``stubs``: the
+    frontend stubs of a vision or audio model, one row a request (the
+    static batch takes the first PROMPTS, each ServeLoop wave the next
+    rows in the order it admits them).  The kernel counts are set to 0
+    just before and read just after.  Checks the static batch's shape and
+    the first wave's tokens; returns (prompts, launches, prefills, decode
+    steps)."""
     import numpy as np
     import torch
     from repro_torch.serve import engine as serve
     rng = np.random.default_rng(0)
     prompts = rng.integers(2, cfg.vocab_size,
                            (SERVE_REQUESTS, prompt_len)).astype(np.int32)
+    fed = [0]
+
+    def extras_fn(n):
+        fed[0] += n
+        return rows(stubs, fed[0] - n, fed[0])
+
     reset()  # the main path starts here
     t0 = time.perf_counter()
-    static = serve.generate(cfg, model, prompts[:PROMPTS], NEW_TOKENS)
+    static = serve.generate(
+        cfg, model, prompts[:PROMPTS], NEW_TOKENS,
+        extras=None if stubs is None else rows(stubs, 0, PROMPTS))
     static_wall = time.perf_counter() - t0
     sl = serve.ServeLoop(cfg, model, num_slots=SERVE_SLOTS,
-                         cache_len=cache_len or prompt_len + NEW_TOKENS)
+                         cache_len=cache_len or prompt_len + NEW_TOKENS,
+                         extras_fn=None if stubs is None else extras_fn)
     reqs = [serve.Request(rid=i, prompt=prompts[i], max_new=NEW_TOKENS)
             for i in range(SERVE_REQUESTS)]
     for r in reqs:
@@ -2805,26 +2930,42 @@ def serve_traffic(cfg, model, counts, reset, phase, prompt_len=PROMPT_LEN,
     if static.shape != (PROMPTS, prompt_len + NEW_TOKENS) or \
             not (static[:, :prompt_len] == prompts[:PROMPTS]).all():
         raise AssertionError(f"generate returned {static.shape}")
-    flips = check_tokens(cfg, model, prompts, static, reqs)
+    if stubs is not None and fed[0] != SERVE_REQUESTS:
+        raise AssertionError(f"ServeLoop took {fed[0]} stubs for "
+                             f"{SERVE_REQUESTS} requests")
+    flips = check_tokens(cfg, model, prompts, static, reqs, stubs)
     emit(phase=phase + "_tokens", ok=True, flips=len(flips),
          flip_detail=flips, requests=len(reqs))
     return prompts, launches, prefills, decode_steps
 
 
-def device_split(events, split):
+def device_split(events, split, carve=None):
     """Device ms and launches of each group of kernels whose name holds
-    one of the group's words (any case), and of the rest."""
+    one of the group's words (any case), and of the rest.  ``carve``:
+    (name, us) of kernels that form a group of their own,
+    ``plain_attention`` (``marked_kernels``), taken out of the groups
+    their names give them."""
     from torch.autograd import DeviceType
-    out = {name: {"ms": 0.0, "launches": 0} for name in [*split, "rest"]}
+
+    def group(key):
+        key = key.lower()
+        return next((n for n, words in split.items()
+                     if any(w in key for w in words)), "rest")
+
+    names = [*split, "rest"] + (["plain_attention"] if carve is not None
+                                else [])
+    out = {name: {"ms": 0.0, "launches": 0} for name in names}
     for e in events:
         if e.device_type != DeviceType.CUDA or \
                 getattr(e, "is_user_annotation", False):
             continue
-        key = e.key.lower()
-        name = next((n for n, words in split.items()
-                     if any(w in key for w in words)), "rest")
+        name = group(e.key)
         out[name]["ms"] += e.self_device_time_total / 1e3
         out[name]["launches"] += e.count
+    for key, us in carve or ():
+        for name, sign in ((group(key), -1), ("plain_attention", 1)):
+            out[name]["ms"] += sign * us / 1e3
+            out[name]["launches"] += sign
     return out
 
 
@@ -2835,30 +2976,42 @@ PREFILL_SPLIT = {"gemm": ("gemm", "nvjet", "xmma", "cutlass"),
                  "rg_lru_loop": ("addcmul",)}
 
 
-def serving_metrics(cfg, model, toks, counts, phase, split=None):
+def serving_metrics(cfg, model, toks, counts, phase, split=None,
+                    extras=None):
     """Prefill tokens/s, TTFT, decode ms/step and tokens/s, the kernel's
     launches per decode step, and the device idle share over a few decode
     steps (host clock, synchronised).  TTFT: the prefill of the wave and
     its first tokens on the host, which every request of the wave waits
     for.  The profiled prefill's device time and launches by kernel
-    group (``device_split`` by ``split``, by default PREFILL_SPLIT)."""
+    group (``device_split`` by ``split``, by default PREFILL_SPLIT); with
+    ``extras`` (the wave's frontend stubs) the kernels of the plain
+    attention (the cross calls) form a group of their own,
+    ``plain_attention``."""
+    import contextlib
     import torch
     from repro_torch.models import lm
     prompts, prompt_len = toks.shape
     cache_len = prompt_len + NEW_TOKENS
-    wall, events = profiled(
-        lambda: lm.prefill(cfg, model, toks, cache_len=cache_len),
-        warmup=1)
+    marked = plain_attention_marked if extras is not None else \
+        contextlib.nullcontext
+    with marked():
+        wall, events, tree = profiled(
+            lambda: lm.prefill(cfg, model, toks, cache_len=cache_len,
+                               extras=extras), warmup=1, tree=True)
     busy, top = device_busy(events)
     emit(phase=phase + "_prefill_profile", wall_s=wall,
          device_busy_s=busy if busy > 0 else "not measured",
          idle_share=1 - busy / wall if busy > 0 else "not measured",
-         top=top, split=device_split(events, split or PREFILL_SPLIT))
+         top=top, split=device_split(
+             events, split or PREFILL_SPLIT,
+             carve=marked_kernels(tree, PLAIN_ATTENTION)
+             if extras is not None else None))
     prefill_s, ttft_s = [], []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = lm.prefill(cfg, model, toks, cache_len=cache_len)
+        logits, cache = lm.prefill(cfg, model, toks, cache_len=cache_len,
+                                   extras=extras)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         tok = logits.argmax(-1)
@@ -2931,35 +3084,38 @@ def lm_path():
     return launches, rec
 
 
-def time_attention_case(gen, what, b, h, hkv, s, d, dt, window=None):
-    """One kernel at one causal shape: its call time (CUDA events around a
-    call, median of 20), its device time (the profiler), its bound (the
-    kept pairs under the window), the plain version's time and SDPA's call
-    and device times (the yardstick, never called by the port) with the
-    kernel SDPA ran.  Emits and returns the row."""
+def time_attention_case(gen, what, b, h, hkv, s, d, dt, window=None,
+                        causal=True):
+    """One kernel at one shape (causal unless ``causal`` is False): its
+    call time (CUDA events around a call, median of 20), its device time
+    (the profiler), its bound (the kept pairs under the mask), the plain
+    version's time and SDPA's call and device times (the yardstick, never
+    called by the port) with the kernel SDPA ran.  Emits and returns the
+    row."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref as tref
     q, k, v = _qkv(gen, b, h, hkv, s, d, dt)
-    kernel = lambda: fa.flash_attention(q, k, v, window=window)  # noqa: E731
-    sdpa = sdpa_call(q, k, v, window)
+    kernel = lambda: fa.flash_attention(  # noqa: E731
+        q, k, v, causal=causal, window=window)
+    sdpa = sdpa_call(q, k, v, window, causal)
     ms = cuda_ms(kernel, reps=20)
     device_ms = kernel_device_ms(kernel)
-    plain = cuda_ms(lambda: tref.attention_ref(q, k, v, window=window),
-                    reps=5)
+    plain = cuda_ms(lambda: tref.attention_ref(q, k, v, causal=causal,
+                                               window=window), reps=5)
     lib = cuda_ms(sdpa, reps=20)
     lib_device = kernel_device_ms(sdpa)
     measured = isinstance(device_ms, float) and isinstance(lib_device, float)
     torch.cuda.synchronize()
     sdpa_err = float((sdpa().float() - kernel().float()).abs().max())
     bound_ms, bound_by, n_ops, n_bytes = attention_bound(
-        b, h, hkv, s, d, dt, True, window)
+        b, h, hkv, s, d, dt, causal, window)
     row = dict(ms=ms, device_ms=device_ms, plain_ms=plain, library_ms=lib,
                library_device_ms=lib_device, bound_ms=bound_ms,
                bound_by=bound_by)
     emit(phase="time", kernel="flash_attention", case=what,
          route=fa.route(dt, d), shape=[b, h, hkv, s, d],
-         dtype=str(dt).split(".")[-1], window=window,
+         dtype=str(dt).split(".")[-1], window=window, causal=causal,
          sdpa_max_abs_diff=sdpa_err, sdpa_kernel=top_kernel(sdpa),
          flops=n_ops, bytes=n_bytes,
          tflops=n_ops / device_ms / 1e9 if measured else "not measured",
@@ -4072,6 +4228,367 @@ def mla_phases():
     emit(phase="mla_freed", device_gb=torch.cuda.memory_allocated() / 1e9)
 
 
+# -- vision and audio serving: llama-3.2-vision-11b and whisper-tiny -------
+
+VISION_ARCH = "llama-3.2-vision-11b"
+VISION_PARAM_COUNT = 9_791_930_368    # param_count(), 40 layers
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_PARAM_COUNT = 49_600_896      # param_count(), 4 + 4 layers
+# whisper's own text context: a prompt of 1500 tokens would equal
+# encoder_seq, and prefill's cross call would take the flash route
+WHISPER_PROMPT_LEN = 448
+WHISPER_ENCODER_SEQ = 1500
+WHISPER_ENCODER_CASE = "whisper encoder D=64 H=Hkv=6 S=1500 full bf16"
+VISION_PREFILL_CASE = "vision prefill D=128 Hkv=8 (group 4) bf16"
+# a cross_attn block's gates are 0 at init, and tanh(0) = 0 hides the
+# whole cross path; the served models draw them from this range
+GATE_RANGE = (0.5, 1.5)
+
+
+def draw_gates(model, seed):
+    """Every ``cross_attn`` block's gate and gate_mlp, drawn in layer order
+    from ``seed`` in GATE_RANGE (two models cut at a superblock boundary
+    get the same gates in the layers they share).  Returns them."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    lo, hi = GATE_RANGE
+    out = []
+    for blk in model.blocks:
+        if blk.kind == "cross_attn":
+            for g in (blk.gate, blk.gate_mlp):
+                g.fill_(float(torch.rand((), generator=gen)) * (hi - lo) + lo)
+                out.append(float(g))
+    return out
+
+
+def draw_stubs(cfg, seed):
+    """The frontend stubs of SERVE_REQUESTS requests, one row each, N(0, 1)
+    in f32 on the card from ``seed``: img_embeds (B, img_seq, d) or
+    enc_embeds (B, encoder_seq, d)."""
+    import torch
+    key, seq = ("enc_embeds", cfg.encoder_seq) if cfg.encdec else \
+        ("img_embeds", cfg.img_seq)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return {key: torch.randn((SERVE_REQUESTS, seq, cfg.d_model),
+                             generator=gen, device=DEVICE)}
+
+
+def plain_beside_cross(q, k, v, causal=True, window=None, scale=None):
+    """A planted fault for a model with cross-attention: a dropped key
+    tile (``dropped_tile_attention``) wherever S == Skv, as a kernel that
+    skipped one would compute; the plain version elsewhere."""
+    from repro_torch.kernels import ref
+    if q.shape[2] == k.shape[2]:
+        return dropped_tile_attention(q, k, v, causal, window, scale)
+    return ref.attention_ref(q, k, v, causal, window, scale)
+
+
+class attention_calls_recorded:
+    """Within the block every ``ops.attention`` call is recorded in
+    ``calls`` with the route it took (``flash_<route>`` where S == Skv,
+    else ``plain``), its result passed on unchanged."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import ops
+        self.saved, self.calls = ops.attention, []
+
+        def record(q, k, v, causal=True, window=None, scale=None):
+            s, skv = q.shape[2], k.shape[2]
+            route = "flash_" + fa.route(q.dtype, q.shape[3]) \
+                if s == skv and s > 1 else "plain"
+            self.calls.append((route, s, skv, bool(causal), q.shape[1],
+                               k.shape[1]))
+            return self.saved(q, k, v, causal, window, scale)
+
+        ops.attention = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.attention = self.saved
+
+    def counts(self):
+        out = {}
+        for route, s, skv, causal, h, hkv in self.calls:
+            key = f"{route} S={s} Skv={skv} " + \
+                ("causal" if causal else "full") + f" H={h} Hkv={hkv}"
+            out[key] = out.get(key, 0) + 1
+        return out
+
+
+def cross_logit_gate(cfg, model, toks, extras, dt, phase):
+    """One wave's prefill logits (its frontend stubs ``extras``) with the
+    kernel against the same model with mha_ref called explicitly
+    (``LOGIT_REL_TOL``), the plain path on the first two prompts alone
+    beside it, and a dropped key tile in every flash call
+    (``plain_beside_cross``), which must read above the f32 gate.  Returns
+    the flash launches of the kernel's prefill (the counts set to 0 just
+    before it and read just after), the route of each attention call (a
+    recorded prefill of its own) and the plain logits."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import lm
+
+    def rel(x, y):
+        return float((x.float() - y.float()).norm() / y.float().norm())
+
+    def prefill(n=None):
+        return lm.prefill(cfg, model, toks[:n], cache_len=toks.shape[1],
+                          extras=extras if n is None else rows(extras, 0,
+                                                               n))[0]
+
+    fa.reset_launch_counts()
+    got = prefill()
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    with attention_calls_recorded() as rec:
+        prefill()
+    with ops_swapped("attention", ref.attention_ref):
+        want, half = prefill(), prefill(2)
+    with ops_swapped("attention", plain_beside_cross):
+        bad = prefill()
+    err, fault = rel(got, want), rel(bad, want)
+    finite = bool(torch.isfinite(got).all())
+    emit(phase=phase, dtype=dt, layers=cfg.num_layers, rel_l2=err,
+         tol=LOGIT_REL_TOL[dt], batch2_rel_l2=rel(half, want[:2]),
+         dropped_tile_rel_l2=fault,
+         max_abs=float((got.float() - want.float()).abs().max()),
+         max_ref=float(want.float().abs().max()),
+         top1_agree=float((got.argmax(-1) == want.argmax(-1)).float()
+                          .mean()), finite=finite,
+         attention_calls=rec.counts(), **launches)
+    if not finite or err > LOGIT_REL_TOL[dt] or (
+            dt == "float32" and fault <= LOGIT_REL_TOL[dt]):
+        raise AssertionError(f"{dt} prefill logits off mha_ref: {err}; a "
+                             f"dropped key tile: {fault}")
+    return launches, rec.counts(), want
+
+
+def cross_init(cfg, seed, phase):
+    """``lm.init`` of ``cfg`` on the card from ``seed``, its gates drawn
+    from the same seed (``draw_gates``); checks its parameter count
+    against ``param_count()``, which leaves out ln_f, the gates, and the
+    bias of a LayerNorm but in the encoder's blocks, and counts the
+    encoder's attention as MHA (a reduced config has 2 kv heads of 4)."""
+    import torch
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    model = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                    device=DEVICE)
+    gates = draw_gates(model, seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    kinds = lm.layer_kinds(cfg)
+    norms = {"decoder": 3, "cross_attn": 2}
+    extra = cfg.d_model + 2 * kinds.count("cross_attn")
+    if cfg.norm == "layernorm":
+        extra += (sum(norms.get(k, 2) for k in kinds) + 1
+                  + 2 * cfg.encdec) * cfg.d_model
+    if cfg.encdec:
+        extra -= cfg.encoder_layers * 2 * cfg.d_model * cfg.head_dim * (
+            cfg.num_heads - cfg.num_kv_heads)
+    emit(phase=phase, arch=cfg.name, layers=cfg.num_layers,
+         kinds={k: kinds.count(k) for k in dict.fromkeys(kinds)},
+         encoder_layers=cfg.encoder_layers if cfg.encdec else 0,
+         params=n_params, param_count=cfg.param_count(), gates=gates,
+         weight_gb=sum(p.numel() * p.element_size()
+                       for p in model.parameters()) / 1e9,
+         seconds=time.perf_counter() - t0)
+    if n_params != cfg.param_count() + extra:
+        raise AssertionError(f"{cfg.name}: {n_params} parameters, "
+                             f"param_count {cfg.param_count()} + {extra}")
+    return model
+
+
+def cross_served_launches(cfg, launches, prefills, phase):
+    """The flash launches of a served cross model: every S == Skv call of
+    each prefill on the route of its dtype and head dim (the self calls,
+    and the encoder's), none at decode, none on the other route."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    kinds = lm.layer_kinds(cfg)
+    per_prefill = kinds.count("attn") + kinds.count("decoder") + (
+        cfg.encoder_layers if cfg.encdec else 0)
+    path = fa.route(getattr(torch, cfg.compute_dtype), cfg.head_dim)
+    other = "cuda_cores" if path == "tensor_cores" else "tensor_cores"
+    n = per_prefill * prefills
+    want = {"flash_attention": n, "flash_attention_" + path: n,
+            "flash_attention_" + other: 0}
+    emit(phase=phase, route=path, per_prefill=per_prefill,
+         prefills=prefills, **launches)
+    if launches != want or n == 0:
+        raise AssertionError(f"flash launches {launches}, expected {want}: "
+                             f"{per_prefill} a prefill x {prefills}")
+
+
+def vision_path():
+    """Serve llama-3.2-vision-11b at full width and depth, its gates and
+    image stubs drawn from the seed: static generate and ServeLoop with
+    every prefill's 32 self-attention layers on the tensor-core flash
+    kernel and the 8 cross layers (1024 queries against 1601 image
+    tokens) on the plain attention; the bf16 logit gate; the serving
+    metrics; then the f32 gate on the first superblock (4 attn and 1
+    cross_attn layers) drawn anew from the same seed, its wave on the
+    CUDA-core kernel.  Returns the serving launches and the metrics."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+
+    cfg = get_config(VISION_ARCH)
+    if LM_REDUCED:
+        cfg = cfg.reduced()
+    elif (cfg.param_count(), cfg.num_layers) != (VISION_PARAM_COUNT, 40):
+        raise AssertionError(f"{cfg.name}: param_count {cfg.param_count()}")
+    torch.cuda.reset_peak_memory_stats()
+    model = cross_init(cfg, 8, "vision_init")
+    stubs = draw_stubs(cfg, 8)
+    prompts, launches, prefills, _ = serve_traffic(
+        cfg, model, fa.launch_counts, fa.reset_launch_counts,
+        "vision_main_path", stubs=stubs)
+    cross_served_launches(cfg, launches, prefills, "vision_launches")
+    toks = torch.as_tensor(prompts[:PROMPTS], dtype=torch.long,
+                           device=DEVICE)
+    wave = rows(stubs, 0, PROMPTS)
+    cross_logit_gate(cfg, model, toks, wave, "bfloat16", "vision_logits")
+    rec = serving_metrics(cfg, model, toks, fa.launch_counts,
+                          "vision_serving", extras=wave)
+    if any(rec["kernel_launches_per_decode_step"].values()):
+        raise AssertionError("vision decode launched a flash kernel")
+    n = len(cfg.block_pattern)
+    bits = weight_bits(model, n)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg1 = dataclasses.replace(cfg, num_layers=n)
+    m32 = cross_init(cfg1, 8, "vision_f32_init")
+    if weight_bits(m32, n) != bits:
+        raise AssertionError("the first superblock's weights differ from "
+                             "the served model's")
+    m32.float()
+    f32_wave, _, _ = cross_logit_gate(cfg1, m32, toks, wave, "float32",
+                                      "vision_logits")
+    n_attn = lm.layer_kinds(cfg1).count("attn")
+    need = {"flash_attention": n_attn, "flash_attention_cuda_cores": n_attn,
+            "flash_attention_tensor_cores": 0}
+    if {k: f32_wave[k] for k in need} != need:
+        raise AssertionError(f"f32 prefill wave: flash launches {f32_wave}, "
+                             f"expected {need}")
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def whisper_path():
+    """Serve whisper-tiny at full width and depth, frame stubs drawn from
+    the seed: static generate and ServeLoop at 448-token prompts, every
+    prefill's 4 encoder layers (unmasked, S 1500) and 4 decoder
+    self-attention layers on the tensor-core flash kernel and its 4
+    cross calls (448 queries against 1500 frames) on the plain attention;
+    the logit gate in bf16 and on the whole model upcast to f32 (50 M
+    parameters), each with the route of every attention call; the
+    serving metrics.  Returns the serving launches and the metrics."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_config(WHISPER_ARCH)
+    prompt_len = WHISPER_PROMPT_LEN
+    if LM_REDUCED:
+        # room for a rehearsal's prompts, and frames enough that a
+        # dropped key tile reaches the encoder's later queries
+        cfg = dataclasses.replace(cfg.reduced(), max_seq=1024,
+                                  encoder_seq=300)
+        prompt_len = PROMPT_LEN
+    elif (cfg.param_count(), cfg.encoder_seq) != (WHISPER_PARAM_COUNT,
+                                                  WHISPER_ENCODER_SEQ):
+        raise AssertionError(f"{cfg.name}: param_count {cfg.param_count()}")
+    if prompt_len == cfg.encoder_seq:
+        raise AssertionError("prompts as long as the encoder's frames send "
+                             "the cross calls to the flash kernel")
+    torch.cuda.reset_peak_memory_stats()
+    model = cross_init(cfg, 9, "whisper_init")
+    stubs = draw_stubs(cfg, 9)
+    prompts, launches, prefills, _ = serve_traffic(
+        cfg, model, fa.launch_counts, fa.reset_launch_counts,
+        "whisper_main_path", prompt_len=prompt_len, stubs=stubs)
+    cross_served_launches(cfg, launches, prefills, "whisper_launches")
+    toks = torch.as_tensor(prompts[:PROMPTS], dtype=torch.long,
+                           device=DEVICE)
+    wave = rows(stubs, 0, PROMPTS)
+    plain = {}
+    for dt, (c, m) in (("bfloat16", (cfg, model)),
+                       ("float32", upcast(cfg, model))):
+        wave_launches, calls, plain[dt] = cross_logit_gate(
+            c, m, toks, wave, dt, "whisper_logits")
+        on = "tensor_cores" if dt == "bfloat16" else "cuda_cores"
+        n = cfg.num_layers + cfg.encoder_layers
+        routes = {"flash_" + on: n, "plain": cfg.num_layers}
+        got = {}
+        for key, count in calls.items():
+            route = key.split()[0]
+            got[route] = got.get(route, 0) + count
+        emit(phase="whisper_attention_routes", dtype=dt, calls=calls)
+        if got != routes or wave_launches["flash_attention_" + on] != n:
+            raise AssertionError(f"{dt} attention calls {calls}, expected "
+                                 f"{routes}")
+        del m
+    emit(phase="whisper_logits_bf16_vs_f32",
+         rel_l2=float((plain["bfloat16"].float() - plain["float32"]).norm()
+                      / plain["float32"].norm()))
+    rec = serving_metrics(cfg, model, toks, fa.launch_counts,
+                          "whisper_serving", extras=wave)
+    if any(rec["kernel_launches_per_decode_step"].values()):
+        raise AssertionError("whisper decode launched a flash kernel")
+    return launches, rec
+
+
+def cross_phases():
+    """Slice 6: llama-3.2-vision-11b and whisper-tiny served at full width
+    and depth (nonzero gates, seeded stubs), then the tensor-core flash
+    kernel's times at vision's prefill shape (B 4, H 32, Hkv 8, S 1024, D
+    128, causal) and whisper's encoder (B 4, H = Hkv = 6, S 1500, D 64,
+    unmasked).  The kernel against its plain version at these shapes runs
+    in ``attention_vs_plain``.  Returns the kernels line entries (launches:
+    each model's served prefills') and frees the models."""
+    import gc
+    import torch
+    launches = {}
+    for name, path in (("vision", vision_path), ("whisper", whisper_path)):
+        launches[name], _ = path()
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(phase=name + "_freed",
+             device_gb=torch.cuda.memory_allocated() / 1e9)
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    bf16 = torch.bfloat16
+    entry = {"name": "flash_attention", "route": "cuda",
+             "path": "tensor_cores",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:121"}
+    out = []
+    for name, shape, case, args in (
+            ("vision", "vision D 128, Hkv 8 of 32", VISION_PREFILL_CASE,
+             (PROMPTS, 32, 8, PROMPT_LEN, 128, bf16)),
+            ("whisper", "whisper encoder D 64, MHA, S 1500, full",
+             WHISPER_ENCODER_CASE,
+             (PROMPTS, 6, 6, WHISPER_ENCODER_SEQ, 64, bf16))):
+        row = time_attention_case(gen, name, *args,
+                                  causal=name == "vision")
+        out.append({**entry, "shape": shape,
+                    "launches": launches[name]["flash_attention_tensor_cores"],
+                    "max_abs_err": ATTN_ERR[case], **row})
+    return out
+
+
 def ptxas_kernels(log, name_of) -> dict:
     """Registers and spill bytes from a ptxas log for each entry function
     that ``name_of(mangled name)`` names (None: left out)."""
@@ -4348,8 +4865,10 @@ def main() -> int:
     # 14.-15. MoE (dbrx-132b) and MLA (minicpm3-4b)
     kernels += moe_phases()
     mla_phases()
+    # 16.-17. vision (llama-3.2-vision-11b) and audio (whisper-tiny)
+    kernels += cross_phases()
 
-    # 16. the card, the kernels line, and the result
+    # 18. the card, the kernels line, and the result
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,15 +7,18 @@ reduced config of an architecture, with random weights from a seed.
     python -m repro_torch.launch.serve --arch dbrx-132b    # MoE
     python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b
     python -m repro_torch.launch.serve --arch minicpm3-4b  # MLA
+    python -m repro_torch.launch.serve --arch llama-3.2-vision-11b
+    python -m repro_torch.launch.serve --arch whisper-tiny
     python -m repro_torch.launch.serve --device cpu       # without a card
 
-Every ``--arch`` but llama-3.2-vision-11b and whisper-tiny (not ported:
-``ROADMAP.md``) runs, on the card or with ``--device cpu``.  Full-width
-serving goes through the library: ``serve.engine.generate`` and
+Every ``--arch`` runs, on the card or with ``--device cpu``.  The vision
+and audio families get zero frontend stubs (``img_embeds``,
+``enc_embeds``), as the JAX package's ``launch/serve.py`` feeds them.
+Full-width serving goes through the library: ``serve.engine.generate`` and
 ``serve.engine.ServeLoop`` on ``models.lm.init(cfg)`` of the full config
 (``chip_smoke.py`` serves granite-3-2b, rwkv6-1.6b, recurrentgemma-9b,
-minicpm3-4b and the first 8 of dbrx-132b's 40 layers that way on the
-card).
+minicpm3-4b, llama-3.2-vision-11b, whisper-tiny and the first 8 of
+dbrx-132b's 40 layers that way on the card).
 """
 
 from __future__ import annotations
@@ -52,15 +55,27 @@ def main(argv=None):
         args.seed), device=device)
     rng = np.random.default_rng(args.seed)
 
+    def extras(n):
+        out = {}
+        if cfg.img_seq:
+            out["img_embeds"] = np.zeros((n, cfg.img_seq, cfg.d_model),
+                                         np.float32)
+        if cfg.encdec:
+            out["enc_embeds"] = np.zeros((n, cfg.encoder_seq, cfg.d_model),
+                                         np.float32)
+        return out
+
     t0 = time.time()
     if args.mode == "static":
         prompts = rng.integers(2, cfg.vocab_size,
                                (args.requests, args.prompt_len))
-        toks = generate(cfg, model, prompts, max_new_tokens=args.max_new)
+        toks = generate(cfg, model, prompts, max_new_tokens=args.max_new,
+                        extras=extras(args.requests))
         print(f"generated {toks.shape} in {time.time() - t0:.1f}s")
         return toks
     sl = ServeLoop(cfg, model, num_slots=args.slots,
-                   cache_len=args.prompt_len + args.max_new + 8)
+                   cache_len=args.prompt_len + args.max_new + 8,
+                   extras_fn=extras)
     reqs = [Request(rid=i, prompt=rng.integers(
         2, cfg.vocab_size, args.prompt_len).astype(np.int32),
         max_new=args.max_new) for i in range(args.requests)]

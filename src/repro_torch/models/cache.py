@@ -1,13 +1,16 @@
 """Decode-state containers: the KV cache of the GQA attention block (and
 of the MoE block, whose attention is the same), MLA's latent cache, the
-ring-buffered cache of the local attention block, and the recurrent
-states of the RWKV-6 and RG-LRU blocks.
+ring-buffered cache of the local attention block, the static
+cross-attention caches, and the recurrent states of the RWKV-6 and
+RG-LRU blocks.
 
-The JAX package's ``models/cache.py`` for block kinds ``attn``, ``moe``,
-``rwkv``, ``recurrent`` and ``local_attn``.  The cross-attention caches
-come with their blocks (``ROADMAP.md``).  Each
-leaf has its own dtype: the KV caches take the caller's, the recurrent
-states are f32 whatever the caller passes, as in the JAX package.
+The JAX package's ``models/cache.py`` for every block kind: ``attn``,
+``moe``, ``rwkv``, ``recurrent``, ``local_attn``, ``cross_attn`` ({"k",
+"v"} over the image tokens) and ``decoder`` ({"self", "cross_k",
+"cross_v"}: its self-attention cache and K/V over the encoder's frames,
+filled at prefill).  Each leaf has its own dtype: the KV caches take the
+caller's, the recurrent states are f32 whatever the caller passes, as in
+the JAX package.
 
 Local-attention caches are ring buffers of size ``window`` with an
 explicit ``pos_of_slot`` time map (-1 for an empty slot): O(window)
@@ -21,25 +24,24 @@ import torch
 from ..configs.base import ModelConfig
 from . import griffin, rwkv
 
-PORTED_KINDS = ("attn", "moe", "rwkv", "recurrent", "local_attn")
+PORTED_KINDS = ("attn", "moe", "rwkv", "recurrent", "local_attn",
+                "cross_attn", "decoder")
 
 
 def check_ported(cfg: ModelConfig, kind: str) -> None:
     """Raise ``NotImplementedError`` naming ROADMAP.md for a block kind,
-    or the attention kind or position embedding of an attention block,
-    that the port does not build yet."""
+    or the attention kind of an attention block, that the port does not
+    build."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md, queue 1: "
-            f"LM stack, the rest); the port builds {PORTED_KINDS}")
+            f"block kind {kind!r} is not ported (ROADMAP.md, queue 1: LM "
+            f"stack, the rest); the port builds {PORTED_KINDS}")
     attention = {"attn": ("gqa", "mla"), "moe": ("gqa", "mla"),
-                 "local_attn": ("gqa",)}.get(kind)
-    if attention is not None and (cfg.attn_kind not in attention
-                                  or cfg.pos_embedding == "learned"):
+                 "local_attn": ("gqa",), "decoder": ("gqa",)}.get(kind)
+    if attention is not None and cfg.attn_kind not in attention:
         raise NotImplementedError(
-            f"attention {cfg.attn_kind!r} with {cfg.pos_embedding!r} "
-            "positions is not ported yet (ROADMAP.md, queue 1: LM stack, "
-            "the rest)")
+            f"attention {cfg.attn_kind!r} in a {kind!r} block is not "
+            "ported (ROADMAP.md, queue 1: LM stack, the rest)")
 
 
 def attn_cache_init(cfg: ModelConfig, batch: int, cache_len: int,
@@ -82,6 +84,13 @@ def local_cache_axes():
             "pos_of_slot": "batch ."}
 
 
+def cross_cache_init(cfg: ModelConfig, batch: int, seq: int,
+                     dtype=torch.bfloat16, device=None):
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return [torch.zeros((batch, seq, kv, hd), dtype=dtype, device=device)
+            for _ in range(2)]
+
+
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int,
                      cache_len: int, dtype=torch.bfloat16, device=None):
     check_ported(cfg, kind)
@@ -91,9 +100,17 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int,
         return griffin.recurrent_state_init(cfg, batch, device)
     if kind == "local_attn":
         return local_cache_init(cfg, batch, dtype, device)
+    if kind == "cross_attn":
+        k, v = cross_cache_init(cfg, batch, cfg.img_seq, dtype, device)
+        return {"k": k, "v": v}
     if cfg.attn_kind == "mla":
-        return mla_cache_init(cfg, batch, cache_len, dtype, device)
-    return attn_cache_init(cfg, batch, cache_len, dtype, device)
+        c = mla_cache_init(cfg, batch, cache_len, dtype, device)
+    else:
+        c = attn_cache_init(cfg, batch, cache_len, dtype, device)
+    if kind == "decoder":  # + the static cross K/V, filled at prefill
+        k, v = cross_cache_init(cfg, batch, cfg.encoder_seq, dtype, device)
+        c = {"self": c, "cross_k": k, "cross_v": v}
+    return c
 
 
 def block_cache_axes(cfg: ModelConfig, kind: str):
@@ -104,4 +121,12 @@ def block_cache_axes(cfg: ModelConfig, kind: str):
         return griffin.recurrent_state_axes()
     if kind == "local_attn":
         return local_cache_axes()
-    return mla_cache_axes() if cfg.attn_kind == "mla" else attn_cache_axes()
+    if kind == "cross_attn":
+        return {"k": "batch img_seq kv_heads head_dim",
+                "v": "batch img_seq kv_heads head_dim"}
+    c = mla_cache_axes() if cfg.attn_kind == "mla" else attn_cache_axes()
+    if kind == "decoder":
+        return {"self": c,
+                "cross_k": "batch enc_seq kv_heads head_dim",
+                "cross_v": "batch enc_seq kv_heads head_dim"}
+    return c

@@ -8,8 +8,11 @@ port's ``LM``, which then computes what the JAX model computes: each
 leaf is cast once to the dtype of its port parameter, so matrices to the
 compute dtype (the JAX package casts them at every use) and norm scales
 (MLA's ``q_norm`` and ``kv_norm`` too), the MoE router, the RWKV block's
-f32 leaves and its ``dec_b``, and the RG-LRU block's ``conv_b`` and
-``lam`` kept in f32.
+f32 leaves and its ``dec_b``, the RG-LRU block's ``conv_b`` and ``lam``,
+and a ``cross_attn`` block's scalar ``gate`` and ``gate_mlp`` (stacked as
+(repeats,) in the JAX tree) kept in f32.  The encoder's blocks are
+stacked on one leading axis (``p["encoder"]["blocks"]``), one entry per
+encoder layer.
 ``params_to_jax`` is its inverse.
 """
 
@@ -42,10 +45,17 @@ _BLOCK_LEAVES = {
         "dec_a", "dec_b", "u", "ln_x", "mu_c", "ck", "cr", "cv")},
     **{f"rec.{n}": ("rec", n) for n in (
         "w_x", "w_y", "conv_w", "conv_b", "wr", "wi", "lam", "w_out")},
+    **{f"xattn.{n}": ("xattn", n) for n in ("wq", "wk", "wv", "wo")},
+    "ln_x.scale": ("ln_x", "scale"), "ln_x.bias": ("ln_x", "bias"),
+    "gate": ("gate",), "gate_mlp": ("gate_mlp",),
 }
 _TOP_LEAVES = {"embed": ("embed",), "head": ("head",),
                "ln_f.scale": ("ln_f", "scale"),
-               "ln_f.bias": ("ln_f", "bias")}
+               "ln_f.bias": ("ln_f", "bias"),
+               "pos_emb": ("pos_emb",), "img_proj": ("img_proj",),
+               "encoder.ln_f.scale": ("encoder", "ln_f", "scale"),
+               "encoder.ln_f.bias": ("encoder", "ln_f", "bias"),
+               "encoder.pos_emb": ("encoder", "pos_emb")}
 
 
 def _leaf_paths(cfg: ModelConfig, model: LM):
@@ -55,11 +65,15 @@ def _leaf_paths(cfg: ModelConfig, model: LM):
     for name, path in _TOP_LEAVES.items():
         if name in params:
             yield params[name], path, None
-    for i, (group, key, r) in enumerate(layer_slots(cfg)):
+    slots = [(f"blocks.{i}", (group, key), r)
+             for i, (group, key, r) in enumerate(layer_slots(cfg))]
+    slots += [(f"encoder.blocks.{i}", ("encoder", "blocks"), i)
+              for i in range(cfg.encoder_layers if cfg.encdec else 0)]
+    for prefix, where, r in slots:
         for name, path in _BLOCK_LEAVES.items():
-            full = f"blocks.{i}.{name}"
+            full = f"{prefix}.{name}"
             if full in params:
-                yield params[full], (group, key) + path, r
+                yield params[full], where + path, r
 
 
 @torch.no_grad()

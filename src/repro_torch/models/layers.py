@@ -13,8 +13,12 @@ and ``kv_norm``) stay f32, as the norms use them.
 
 The local (ring-buffer) attention block's prefill and decode live in
 ``lm.py``, as in the JAX package, on ``_self_attend`` and
-``_decode_attend_local`` from here.  Not ported (``ROADMAP.md``):
-cross-attention and ``_decode_attend_flash``, which needs a mesh.
+``_decode_attend_local`` from here.  Cross-attention (``attn_apply`` with
+``kv_src``, ``cross_attn_kv``, ``cross_attn_decode``) projects K/V from
+the encoder's or the image stub's states and applies no RoPE; its scores
+run the plain attention wherever the prompt's length differs from the
+source's, as the JAX package's ``ops`` sends them to XLA.  Not ported
+(``ROADMAP.md``): ``_decode_attend_flash``, which needs a mesh.
 """
 
 from __future__ import annotations
@@ -143,17 +147,32 @@ def _qkv(cfg, p: Attention, x, positions):
     return q, k, v
 
 
-def _self_attend(cfg, p: Attention, x, positions, window):
+def _self_attend(cfg, p: Attention, x, positions, window, causal=True):
     q, k, v = _qkv(cfg, p, x, positions)
     o = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                      v.transpose(1, 2), causal=True, window=window)
+                      v.transpose(1, 2), causal=causal, window=window)
     return _out(o.transpose(1, 2), p.wo), k, v
 
 
+def _cross_attend(p: Attention, x, kv):
+    """x's queries against the K/V of ``cross_attn_kv``, unmasked: the
+    flash kernel on the card where the prompt is as long as the source,
+    the plain attention elsewhere (``ops.attention``)."""
+    q = _proj(x, p.wq)
+    o = ops.attention(q.transpose(1, 2), kv["k"].transpose(1, 2),
+                      kv["v"].transpose(1, 2), causal=False)
+    return _out(o.transpose(1, 2), p.wo)
+
+
 def attn_apply(cfg: ModelConfig, p: Attention, x, *, positions,
-               window=None):
-    """Full-sequence causal self-attention (train / prefill)."""
-    return _self_attend(cfg, p, x, positions, window)[0]
+               window=None, causal=True, kv_src=None):
+    """Full-sequence attention (train / prefill).  ``kv_src`` (B, Skv, d)
+    given: cross-attention over it, no RoPE and no mask, whatever
+    ``causal`` says, as in the JAX package (no caller gives it a
+    window)."""
+    if kv_src is None:
+        return _self_attend(cfg, p, x, positions, window, causal)[0]
+    return _cross_attend(p, x, cross_attn_kv(cfg, p, kv_src))
 
 
 def attn_prefill(cfg: ModelConfig, p: Attention, x, *, positions, cache,
@@ -229,6 +248,30 @@ def _decode_attend_local(q, k, v, pos, window, kpos=None):
     pda = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bgrs,bsgk->bgrk", pda, v)
     return o.reshape(b, 1, h, hd)
+
+
+def cross_attn_kv(cfg: ModelConfig, p: Attention, enc: torch.Tensor):
+    """The cross-attention K/V (B, Skv, KV, hd) of the encoder's or the
+    image stub's states ``enc``, computed once at prefill."""
+    return {"k": _proj(enc, p.wk), "v": _proj(enc, p.wv)}
+
+
+def cross_attn_decode(cfg: ModelConfig, p: Attention, x, kv):
+    """One token's cross-attention over the static K/V ``kv`` (the
+    prefill's, in the cache's dtype): kv heads repeated to H, f32 scores,
+    softmax, probabilities cast to V's dtype, as the JAX package computes
+    it in XLA."""
+    q = _proj(x, p.wq)
+    k, v = kv["k"], kv["v"]
+    h, kvh = q.shape[2], k.shape[2]
+    if kvh != h:
+        k = k.repeat_interleave(h // kvh, dim=2)
+        v = v.repeat_interleave(h // kvh, dim=2)
+    cd = torch.promote_types(q.dtype, k.dtype)
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bthk,bshk->bhts", q.to(cd), k.to(cd)).float() * scale
+    o = torch.einsum("bhts,bshk->bthk", torch.softmax(s, -1).to(v.dtype), v)
+    return _out(o, p.wo)
 
 
 # ---------------------------------------------------------------------------

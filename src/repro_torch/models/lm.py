@@ -1,14 +1,14 @@
 """The decoder stack: init, forward, prefill and one-token decode.
 
-The JAX package's ``models/lm.py`` in PyTorch for the dense GQA families
-(block kind ``attn``: granite-3-2b, chatglm3-6b, nemotron-4-340b), MLA
-(``attn_kind="mla"``: minicpm3-4b), the MoE families (block kind
-``moe``: dbrx-132b, llama4-maverick-400b-a17b), RWKV-6 (block kind
-``rwkv``: rwkv6-1.6b) and the Griffin hybrid (block kinds ``recurrent``
-and ``local_attn``: recurrentgemma-9b).  The other block kinds
-(``cross_attn``, ``decoder``), learned positions and the encoder are not
-ported yet: building a config that needs them raises
-``NotImplementedError`` naming ``ROADMAP.md``.
+The JAX package's ``models/lm.py`` in PyTorch for every family it
+builds: dense GQA (block kind ``attn``: granite-3-2b, chatglm3-6b,
+nemotron-4-340b), MLA (``attn_kind="mla"``: minicpm3-4b), the MoE
+families (block kind ``moe``: dbrx-132b, llama4-maverick-400b-a17b),
+RWKV-6 (block kind ``rwkv``: rwkv6-1.6b), the Griffin hybrid (block kinds
+``recurrent`` and ``local_attn``: recurrentgemma-9b), the VLM's gated
+cross-attention (block kind ``cross_attn``: llama-3.2-vision-11b) and the
+encoder-decoder with learned positions (block kind ``decoder`` and the
+encoder: whisper-tiny).
 
 A ``moe`` block routes with capacity drops in ``forward`` and
 ``prefill`` and dropless at a decode step, as the reference does
@@ -19,19 +19,33 @@ kernel and keeps the last ``window`` K/V in a ring buffer (slot = time %
 window); its decode step is a masked softmax over the ring in plain
 torch, as the reference computes it in XLA.
 
+The cross-attention source comes from the frontend stubs, passed as
+``extras`` (the JAX package's ``batch`` keys): ``img_embeds`` (B,
+img_seq, d) through ``img_proj``, or ``enc_embeds`` (B, encoder_seq, d)
+through the encoder (``encode``: its blocks unmasked, learned positions).
+A ``cross_attn`` block adds its attention and its MLP through
+tanh(``gate``) and tanh(``gate_mlp``), both zero at ``init``, as in the
+reference; a ``decoder`` block runs its causal self-attention, then the
+cross-attention through ``ln_x``, then the MLP.  Prefill keeps each
+block's K/V over the source in the cache; a decode step attends over
+them in plain torch.  Learned positions are added by index, a
+left-padded prompt's pads included, as in the reference.
+
 The JAX package stacks each superblock position's layers on a leading
 axis and ``lax.scan``s over it; here ``LM.blocks`` holds every layer in
 order (superblock r, position j; then the remainder) and a Python loop
-walks them.  The cache keeps the JAX package's tree, leaves stacked on a
-leading layer axis, so ``cache_axes`` names the same dimensions.
+walks them (``LM.encoder.blocks`` likewise).  The cache keeps the JAX
+package's tree, leaves stacked on a leading layer axis, so
+``cache_axes`` names the same dimensions.
 
 Entry points:
   init(cfg, generator, device)                   → LM (random weights)
-  forward(cfg, model, tokens)                    → logits (B, S, V)
-  prefill(cfg, model, tokens, cache_len)         → last logits (B, V),
+  forward(cfg, model, tokens, extras)            → logits (B, S, V)
+  prefill(cfg, model, tokens, cache_len, extras) → last logits (B, V),
                                                    cache
   decode_step(cfg, model, cache, token, pos)     → logits (B, V), cache
                                                    (updated in place)
+  encode(cfg, model, enc_embeds)                 → encoder states
 """
 
 from __future__ import annotations
@@ -64,11 +78,20 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
             + list(cfg.remainder_layers))
 
 
+def _scalar(device) -> nn.Parameter:
+    """An f32 scalar, zero: a ``cross_attn`` block's gates at init."""
+    return nn.Parameter(torch.zeros((), dtype=torch.float32, device=device),
+                        requires_grad=False)
+
+
 class Block(nn.Module):
     """``attn`` and ``local_attn``: ln1, attn, ln2, mlp.  ``moe``: ln1,
     attn, ln2, mlp (a ``moe.MoE``).  ``rwkv``: ln1, rwkv, ln2.
-    ``recurrent``: ln1, rec, ln2, mlp.  attn is ``layers.MLA`` under
-    ``attn_kind="mla"``, else ``layers.Attention``."""
+    ``recurrent``: ln1, rec, ln2, mlp.  ``decoder``: ln1, attn, ln2, mlp,
+    xattn (the cross-attention), ln_x.  ``cross_attn``: ln1, attn (over
+    the image tokens), ln2, mlp and the f32 scalars gate and gate_mlp.
+    attn is ``layers.MLA`` under ``attn_kind="mla"`` (not in a
+    ``cross_attn`` block), else ``layers.Attention``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None):
         super().__init__()
@@ -80,7 +103,7 @@ class Block(nn.Module):
             return
         if kind == "recurrent":
             self.rec = griffin.Recurrent(cfg, device=device)
-        elif cfg.attn_kind == "mla":
+        elif cfg.attn_kind == "mla" and kind != "cross_attn":
             self.attn = layers.mla_init(cfg, device=device)
         else:
             self.attn = layers.attn_init(cfg, device=device)
@@ -89,12 +112,36 @@ class Block(nn.Module):
             self.mlp = moe.moe_init(cfg, device=device)
         else:
             self.mlp = layers.mlp_init(cfg, device=device)
+        if kind == "decoder":
+            self.xattn = layers.attn_init(cfg, device=device)
+            self.ln_x = layers.norm_init(cfg, device=device)
+        if kind == "cross_attn":
+            self.gate = _scalar(device)
+            self.gate_mlp = _scalar(device)
+
+
+class Encoder(nn.Module):
+    """The encoder-decoder's encoder: ``encoder_layers`` ``attn`` blocks,
+    ln_f, and learned positions pos_emb (encoder_seq, d) when the config
+    has them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(Block(cfg, "attn", device)
+                                    for _ in range(cfg.encoder_layers))
+        self.ln_f = layers.norm_init(cfg, device=device)
+        if cfg.pos_embedding == "learned":
+            self.pos_emb = layers._weight((cfg.encoder_seq, cfg.d_model),
+                                          cfg, device)
 
 
 class LM(nn.Module):
-    """embed (V, d), head (d, V) unless tied, ln_f, and one ``Block`` per
-    layer.  Matrices in ``cfg.compute_dtype``; norm scales, the MoE
-    router and the RWKV and RG-LRU blocks' f32 leaves in f32."""
+    """embed (V, d), head (d, V) unless tied, ln_f, pos_emb (max_seq, d)
+    under learned positions, img_proj (d, d) with an image stub, an
+    ``Encoder`` for an encoder-decoder, and one ``Block`` per layer.
+    Matrices in ``cfg.compute_dtype``; norm scales, the MoE router, the
+    cross-attention gates and the RWKV and RG-LRU blocks' f32 leaves in
+    f32."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -107,8 +154,16 @@ class LM(nn.Module):
             self.head = layers._weight((cfg.d_model, cfg.vocab_size), cfg,
                                        device)
         self.ln_f = layers.norm_init(cfg, device=device)
+        if cfg.pos_embedding == "learned":
+            self.pos_emb = layers._weight((cfg.max_seq, cfg.d_model), cfg,
+                                          device)
+        if cfg.img_seq:
+            self.img_proj = layers._weight((cfg.d_model, cfg.d_model), cfg,
+                                           device)
         self.blocks = nn.ModuleList(Block(cfg, kind, device)
                                     for kind in layer_kinds(cfg))
+        if cfg.encdec:
+            self.encoder = Encoder(cfg, device)
 
 
 def _fill(w: nn.Parameter, fan_in: int, gen: torch.Generator) -> None:
@@ -128,17 +183,28 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     gen = generator if generator is not None else \
         torch.Generator(device=device).manual_seed(0)
     model = LM(cfg, device)
-    d, hd = cfg.d_model, cfg.head_dim
+    d = cfg.d_model
     _fill(model.embed, d, gen)
     if not cfg.tie_embeddings:
         _fill(model.head, d, gen)
+    for w in (getattr(model, "pos_emb", None),
+              getattr(model, "img_proj", None)):
+        if w is not None:
+            _fill(w, d, gen)
     for blk in model.blocks:
         if blk.kind == "rwkv":
             _fill_rwkv(cfg, blk.rwkv, gen)
             continue
+        if blk.kind == "recurrent":
+            _fill_recurrent(cfg, blk.rec, gen)
+            _fill(blk.mlp.wi, d, gen)
+            if cfg.mlp_kind == "swiglu":
+                _fill(blk.mlp.wg, d, gen)
+            _fill(blk.mlp.wo, cfg.d_ff, gen)
+            continue
         # the GQA dense blocks below keep their draw order, so a seed
         # gives the dense models the weights it gave them before
-        if blk.kind == "moe" or cfg.attn_kind == "mla":
+        if blk.kind == "moe" or isinstance(blk.attn, layers.MLA):
             _fill_attention(cfg, blk.attn, gen)
             if blk.kind == "moe":
                 moe.fill(cfg, blk.mlp, lambda w, fan_in: _fill(w, fan_in,
@@ -149,17 +215,26 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 if cfg.mlp_kind == "swiglu":
                     _fill(blk.mlp.wg, d, gen)
             continue
-        if blk.kind == "recurrent":
-            _fill_recurrent(cfg, blk.rec, gen)
-            _fill(blk.mlp.wi, d, gen)
-        else:
-            for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.mlp.wi):
-                _fill(w, d, gen)
-            _fill(blk.attn.wo, cfg.num_heads * hd, gen)
-        if cfg.mlp_kind == "swiglu":
-            _fill(blk.mlp.wg, d, gen)
-        _fill(blk.mlp.wo, cfg.d_ff, gen)
+        _fill_dense(cfg, blk, gen)
+        if blk.kind == "decoder":
+            _fill_attention(cfg, blk.xattn, gen)
+    if cfg.encdec:
+        for blk in model.encoder.blocks:
+            _fill_dense(cfg, blk, gen)
+        if cfg.pos_embedding == "learned":
+            _fill(model.encoder.pos_emb, d, gen)
     return model
+
+
+def _fill_dense(cfg: ModelConfig, blk: Block, gen) -> None:
+    """A GQA block's attention and MLP, in the dense models' draw order."""
+    d, hd = cfg.d_model, cfg.head_dim
+    for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.mlp.wi):
+        _fill(w, d, gen)
+    _fill(blk.attn.wo, cfg.num_heads * hd, gen)
+    if cfg.mlp_kind == "swiglu":
+        _fill(blk.mlp.wg, d, gen)
+    _fill(blk.mlp.wo, cfg.d_ff, gen)
 
 
 def _fill_attention(cfg: ModelConfig, p, gen) -> None:
@@ -233,42 +308,77 @@ def _mlp_half(cfg: ModelConfig, p: Block, x, dropless: bool = False):
     return x + layers.mlp_apply(cfg, p.mlp, h2)
 
 
-def block_apply(cfg: ModelConfig, p: Block, x, *, positions):
+def _gated_half(cfg: ModelConfig, p: Block, x, att):
+    """The rest of a ``cross_attn`` block after its attention ``att``:
+    x + tanh(gate) · att, then the MLP through tanh(gate_mlp), each gate
+    cast to x's dtype (llama-vision)."""
+    x = x + torch.tanh(p.gate).to(x.dtype) * att
+    h2 = layers.norm_apply(cfg, p.ln2, x)
+    return x + torch.tanh(p.gate_mlp).to(x.dtype) * layers.mlp_apply(
+        cfg, p.mlp, h2)
+
+
+def block_apply(cfg: ModelConfig, p: Block, x, *, positions, enc=None):
     """Full-sequence forward of one block (an RWKV or RG-LRU block starts
-    from the zero state, as in the JAX package)."""
+    from the zero state, as in the JAX package).  ``enc``: the
+    cross-attention source (B, Skv, d) of a ``cross_attn`` or
+    ``decoder`` block."""
     if p.kind in ("rwkv", "recurrent"):
         state = cache_lib.block_cache_init(cfg, p.kind, x.shape[0], 0,
                                            device=x.device)
         block = _rwkv_block if p.kind == "rwkv" else _recurrent_block
         return block(cfg, p, x, state)[0]
     h = layers.norm_apply(cfg, p.ln1, x)
+    if p.kind == "cross_attn":
+        return _gated_half(cfg, p, x, layers.attn_apply(
+            cfg, p.attn, h, positions=positions, kv_src=enc, causal=False))
     if cfg.attn_kind == "mla":
         x = x + layers.mla_apply(cfg, p.attn, h, positions=positions)
     else:
         window = cfg.window if p.kind == "local_attn" else None
         x = x + layers.attn_apply(cfg, p.attn, h, positions=positions,
                                   window=window)
+    if p.kind == "decoder":
+        hx = layers.norm_apply(cfg, p.ln_x, x)
+        x = x + layers.attn_apply(cfg, p.xattn, hx, positions=positions,
+                                  kv_src=enc, causal=False)
     return _mlp_half(cfg, p, x)
 
 
-def block_prefill(cfg: ModelConfig, p: Block, x, *, positions, cache):
+def block_prefill(cfg: ModelConfig, p: Block, x, *, positions, cache,
+                  enc=None):
     """Forward + this block's decode cache, written into ``cache`` (an
     RWKV or RG-LRU block's starts as zeros: its prefill starts from the
-    zero state; a local block's as an empty ring)."""
+    zero state; a local block's as an empty ring; a ``cross_attn`` or
+    ``decoder`` block's K/V over ``enc`` fill its cross cache)."""
     if p.kind == "rwkv":
         return _rwkv_block(cfg, p, x, cache)
     if p.kind == "recurrent":
         return _recurrent_block(cfg, p, x, cache)
     h = layers.norm_apply(cfg, p.ln1, x)
+    if p.kind == "cross_attn":
+        kv = layers.cross_attn_kv(cfg, p.attn, enc)
+        cache["k"].copy_(kv["k"])
+        cache["v"].copy_(kv["v"])
+        return _gated_half(cfg, p, x, layers._cross_attend(p.attn, h,
+                                                           kv)), cache
     if cfg.attn_kind == "mla":
-        att, c = layers.mla_prefill(cfg, p.attn, h, positions=positions,
+        att, _ = layers.mla_prefill(cfg, p.attn, h, positions=positions,
                                     cache=cache)
     elif p.kind == "local_attn":
-        att, c = _local_prefill(cfg, p.attn, h, positions, cache)
+        att, _ = _local_prefill(cfg, p.attn, h, positions, cache)
     else:
-        att, c = layers.attn_prefill(cfg, p.attn, h, positions=positions,
-                                     cache=cache)
-    return _mlp_half(cfg, p, x + att), c
+        self_cache = cache["self"] if p.kind == "decoder" else cache
+        att, _ = layers.attn_prefill(cfg, p.attn, h, positions=positions,
+                                     cache=self_cache)
+    x = x + att
+    if p.kind == "decoder":
+        kv = layers.cross_attn_kv(cfg, p.xattn, enc)
+        cache["cross_k"].copy_(kv["k"])
+        cache["cross_v"].copy_(kv["v"])
+        hx = layers.norm_apply(cfg, p.ln_x, x)
+        x = x + layers._cross_attend(p.xattn, hx, kv)
+    return _mlp_half(cfg, p, x), cache
 
 
 def _local_prefill(cfg: ModelConfig, p: layers.Attention, h, positions,
@@ -315,13 +425,22 @@ def block_decode(cfg: ModelConfig, p: Block, x, c, *, pos):
     if p.kind == "recurrent":
         return _recurrent_block(cfg, p, x, c)
     h = layers.norm_apply(cfg, p.ln1, x)
+    if p.kind == "cross_attn":
+        return _gated_half(cfg, p, x, layers.cross_attn_decode(
+            cfg, p.attn, h, c)), c
     if cfg.attn_kind == "mla":
-        att, c = layers.mla_decode(cfg, p.attn, h, c, pos=pos)
+        att, _ = layers.mla_decode(cfg, p.attn, h, c, pos=pos)
     elif p.kind == "local_attn":
-        att, c = _local_decode(cfg, p.attn, h, c, pos)
+        att, _ = _local_decode(cfg, p.attn, h, c, pos)
     else:
-        att, c = layers.attn_decode(cfg, p.attn, h, c, pos=pos)
-    return _mlp_half(cfg, p, x + att, dropless=True), c
+        self_cache = c["self"] if p.kind == "decoder" else c
+        att, _ = layers.attn_decode(cfg, p.attn, h, self_cache, pos=pos)
+    x = x + att
+    if p.kind == "decoder":
+        hx = layers.norm_apply(cfg, p.ln_x, x)
+        x = x + layers.cross_attn_decode(
+            cfg, p.xattn, hx, {"k": c["cross_k"], "v": c["cross_v"]})
+    return _mlp_half(cfg, p, x, dropless=True), c
 
 
 # ---------------------------------------------------------------------------
@@ -329,8 +448,16 @@ def block_decode(cfg: ModelConfig, p: Block, x, c, *, pos):
 # ---------------------------------------------------------------------------
 
 
-def _embed(cfg: ModelConfig, model: LM, tokens):
-    return model.embed[tokens]
+def _embed(cfg: ModelConfig, model: LM, tokens, positions=None):
+    """Token embeddings, plus the learned positions at ``positions``
+    (default 0 .. S - 1) under ``pos_embedding="learned"``."""
+    x = model.embed[tokens]
+    if cfg.pos_embedding == "learned":
+        if positions is None:
+            x = x + model.pos_emb[None, :x.shape[1]]
+        else:
+            x = x + model.pos_emb[positions]
+    return x
 
 
 def _logits(cfg: ModelConfig, model: LM, x):
@@ -346,30 +473,75 @@ def _positions(tokens):
 
 
 @torch.no_grad()
-def forward(cfg: ModelConfig, model: LM,
-            tokens: torch.Tensor) -> torch.Tensor:
+def encode(cfg: ModelConfig, model: LM, enc_embeds) -> torch.Tensor:
+    """The encoder over the frontend stub's frame embeddings (B, S, d):
+    learned positions, unmasked self-attention blocks (the flash kernel
+    on the card), ln_f.  Returns (B, S, d) in the compute dtype."""
+    ep = model.encoder
+    x = torch.as_tensor(enc_embeds, device=model.embed.device).to(
+        model.embed.dtype)
+    if cfg.pos_embedding == "learned":
+        x = x + ep.pos_emb[None, :x.shape[1]]
+    positions = _positions(x[..., 0])
+    for blk in ep.blocks:
+        h = layers.norm_apply(cfg, blk.ln1, x)
+        x = x + layers.attn_apply(cfg, blk.attn, h, positions=positions,
+                                  causal=False)
+        x = _mlp_half(cfg, blk, x)
+    return layers.norm_apply(cfg, ep.ln_f, x)
+
+
+def _enc_for(cfg: ModelConfig, model: LM, extras: Optional[Dict]):
+    """The cross-attention source from the frontend stubs: the encoder
+    over ``extras["enc_embeds"]``, or ``extras["img_embeds"]`` @
+    img_proj; None for a model without cross-attention."""
+    if not (cfg.encdec or cfg.img_seq):
+        return None
+    key = "enc_embeds" if cfg.encdec else "img_embeds"
+    if not extras or key not in extras:
+        raise ValueError(f"{cfg.name} needs extras[{key!r}], the frontend "
+                         "stub's embeddings")
+    if cfg.encdec:
+        return encode(cfg, model, extras[key])
+    img = torch.as_tensor(extras[key], device=model.embed.device)
+    return img.to(model.img_proj.dtype) @ model.img_proj
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
+            extras: Optional[Dict] = None) -> torch.Tensor:
     """tokens (B, S) → logits (B, S, V): the forward half of the JAX
-    package's ``forward_train`` (no gradient, no aux loss)."""
+    package's ``forward_train`` (no gradient, no aux loss).  ``extras``:
+    the frontend stubs, keyed as the JAX package's batch
+    (``img_embeds`` or ``enc_embeds``)."""
     x = _embed(cfg, model, tokens)
     positions = _positions(tokens)
+    enc = _enc_for(cfg, model, extras)
     for blk in model.blocks:
-        x = block_apply(cfg, blk, x, positions=positions)
+        x = block_apply(cfg, blk, x, positions=positions, enc=enc)
     return _logits(cfg, model, x)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, t) for k, t in tree.items()}
+    return fn(tree)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device=None) -> Dict:
     """The JAX package's cache tree, each ``blocks`` leaf stacked on a
-    leading layer axis.  ``dtype`` is the KV caches'; each leaf keeps the
-    dtype and the value ``block_cache_init`` gives it, so the recurrent
-    states stay f32 and an empty ring's ``pos_of_slot`` is -1."""
+    leading layer axis.  ``dtype`` is the KV caches' (the cross caches'
+    too); each leaf keeps the dtype and the value ``block_cache_init``
+    gives it, so the recurrent states stay f32 and an empty ring's
+    ``pos_of_slot`` is -1."""
     device = resolve_device(device)
 
     def stacked(kind, stack):
         one = cache_lib.block_cache_init(cfg, kind, batch, cache_len,
                                          dtype, device=device)
-        return {n: t.expand(stack + t.shape).clone() if stack else t
-                for n, t in one.items()}
+        return _tree_map(lambda t: t.expand(stack + t.shape).clone()
+                         if stack else t, one)
 
     c = {"blocks": {f"b{j}": stacked(kind, (cfg.pattern_repeats,))
                     for j, kind in enumerate(cfg.block_pattern)}}
@@ -381,8 +553,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 def cache_axes(cfg: ModelConfig) -> Dict:
     c = {"blocks": {
-        f"b{j}": {n: "stack " + ax for n, ax in
-                  cache_lib.block_cache_axes(cfg, kind).items()}
+        f"b{j}": _tree_map(lambda ax: "stack " + ax,
+                           cache_lib.block_cache_axes(cfg, kind))
         for j, kind in enumerate(cfg.block_pattern)}}
     if cfg.remainder_layers:
         c["rem"] = {f"r{j}": cache_lib.block_cache_axes(cfg, kind)
@@ -392,25 +564,25 @@ def cache_axes(cfg: ModelConfig) -> Dict:
 
 def layer_caches(cfg: ModelConfig, cache: Dict) -> List[Dict]:
     """Per-layer views into the cache tree, in execution order."""
-    out = []
-    for group, key, r in layer_slots(cfg):
-        leaves = cache[group][key]
-        out.append({n: t if r is None else t[r] for n, t in leaves.items()})
-    return out
+    return [_tree_map(lambda t: t if r is None else t[r], cache[group][key])
+            for group, key, r in layer_slots(cfg)]
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
-            cache_len: int):
+            cache_len: int, extras: Optional[Dict] = None):
     """tokens (B, S) → (last-token logits (B, V), cache: the KV cache
-    padded to cache_len and the local rings in the compute dtype, the
-    RWKV and RG-LRU states in f32)."""
+    padded to cache_len, the cross K/V and the local rings in the compute
+    dtype, the RWKV and RG-LRU states in f32).  ``extras``: as in
+    ``forward``."""
     b, s = tokens.shape
     x = _embed(cfg, model, tokens)
     positions = _positions(tokens)
+    enc = _enc_for(cfg, model, extras)
     cache = init_cache(cfg, b, cache_len, dtype=x.dtype, device=x.device)
     for blk, c in zip(model.blocks, layer_caches(cfg, cache)):
-        x, _ = block_prefill(cfg, blk, x, positions=positions, cache=c)
+        x, _ = block_prefill(cfg, blk, x, positions=positions, cache=c,
+                             enc=enc)
     return _logits(cfg, model, x[:, -1:, :])[:, 0], cache
 
 
@@ -419,8 +591,9 @@ def decode_step(cfg: ModelConfig, model: LM, cache: Dict,
                 token: torch.Tensor, pos):
     """token (B,); pos: scalar or (B,) position of the new token.
     Returns (logits (B, V), cache): the cache is updated in place."""
-    x = _embed(cfg, model, token[:, None])
-    pos_arr = torch.as_tensor(pos, device=x.device).expand(token.shape[0])
+    pos_arr = torch.as_tensor(pos, device=token.device).expand(
+        token.shape[0])
+    x = _embed(cfg, model, token[:, None], pos_arr[:, None])
     for blk, c in zip(model.blocks, layer_caches(cfg, cache)):
         x, _ = block_decode(cfg, blk, x, c, pos=pos_arr)
     return _logits(cfg, model, x)[:, 0], cache

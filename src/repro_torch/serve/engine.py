@@ -18,16 +18,19 @@ and every decode step.  The RWKV and RG-LRU states, unlike a KV cache,
 are f32 whatever the cache dtype: slot surgery copies them without
 rounding, and a local layer's ring buffer moves with its ``pos_of_slot``
 map, whose "batch" axis its axes name too.
+The vision and audio families take their frontend stubs as ``extras``
+(``img_embeds`` or ``enc_embeds``): ``generate(..., extras=)`` for the
+static batch, ``ServeLoop(..., extras_fn=)`` called with each wave's
+size; a wave's cross K/V, computed at its prefill, move into the slots'
+cache rows with the rest of the cache.
 Temperature sampling draws from an explicit ``torch.Generator``; it
-cannot reproduce ``jax.random``'s draws.  The frontend stubs of the
-vision and audio families (``extras``) are not ported, since those
-families are not (``ROADMAP.md``).
+cannot reproduce ``jax.random``'s draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -58,14 +61,17 @@ def _sample(logits, generator: Optional[torch.Generator],
 def generate(cfg: ModelConfig, model: lm.LM, prompts, max_new_tokens: int,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
+             extras: Optional[Dict] = None,
              eos: Optional[int] = None) -> np.ndarray:
-    """prompts: (B, S) int.  Returns (B, S + max_new) int32 tokens."""
+    """prompts: (B, S) int; ``extras``: the frontend stubs of the batch
+    (``lm.prefill``'s).  Returns (B, S + max_new) int32 tokens."""
     dev = _device(model)
     prompts = np.asarray(prompts, dtype=np.int32)
     b, s = prompts.shape
     cache_len = s + max_new_tokens
     toks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
-    logits, cache = lm.prefill(cfg, model, toks, cache_len=cache_len)
+    logits, cache = lm.prefill(cfg, model, toks, cache_len=cache_len,
+                               extras=extras)
     out = [prompts]
     tok = _sample(logits, generator, temperature)
     done = np.zeros(b, dtype=bool)
@@ -101,12 +107,14 @@ class Request:
 
 
 class ServeLoop:
-    """Fixed B-slot decode pool with wave prefill."""
+    """Fixed B-slot decode pool with wave prefill.  ``extras_fn(n)``
+    gives the frontend stubs of a wave of n requests."""
 
     def __init__(self, cfg: ModelConfig, model: lm.LM, num_slots: int,
-                 cache_len: int):
+                 cache_len: int, extras_fn=None):
         self.cfg, self.model = cfg, model
         self.b, self.cache_len = num_slots, cache_len
+        self.extras_fn = extras_fn or (lambda n: {})
         self.device = _device(model)
         self.cache = lm.init_cache(cfg, num_slots, cache_len,
                                    device=self.device)
@@ -138,7 +146,7 @@ class ServeLoop:
             toks[i, maxlen - len(r.prompt):] = r.prompt
         logits, wave_cache = lm.prefill(
             self.cfg, self.model, torch.as_tensor(toks, device=self.device),
-            cache_len=self.cache_len)
+            cache_len=self.cache_len, extras=self.extras_fn(len(wave)))
         tok = torch.argmax(logits, dim=-1).cpu().numpy()
         slots = torch.as_tensor([s for s, _ in wave], device=self.device)
 

@@ -31,6 +31,7 @@ from repro_torch.configs import ARCH_IDS  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.launch import serve as tlaunch  # noqa: E402
+from repro_torch.models import cache as tcache  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.serve import engine as tserve  # noqa: E402
@@ -41,10 +42,10 @@ MOE_ARCHS = ["dbrx-132b", "llama4-maverick-400b-a17b"]
 # generate and ServeLoop: one model of each kind of block
 SERVE_ARCHS = ["granite-3-2b", "dbrx-132b", "llama4-maverick-400b-a17b",
                "minicpm3-4b"]
-# rwkv6-1.6b and recurrentgemma-9b are ported too: tests/test_torch_rwkv.py,
-# tests/test_torch_griffin.py
-UNPORTED = [a for a in ARCH_IDS
-            if a not in ARCHS + ["rwkv6-1.6b", "recurrentgemma-9b"]]
+# rwkv6-1.6b, recurrentgemma-9b, llama-3.2-vision-11b and whisper-tiny are
+# ported too: tests/test_torch_rwkv.py, tests/test_torch_griffin.py,
+# tests/test_torch_crossattn.py
+CROSS_ARCHS = ["llama-3.2-vision-11b", "whisper-tiny"]
 LOGIT_TOL = 1e-4
 CPU = "cpu"
 
@@ -318,19 +319,29 @@ def test_launch_serve_cli(mode):
         assert all(r.done and len(r.generated) == 4 for r in out)
 
 
-# -- what is not ported ------------------------------------------------------
+# -- every config builds; an unknown block kind does not -------------------
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_builds(arch):
     cfg = tget(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tlm.init(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tlm.init_cache(cfg, 1, 8, device=CPU)
+    model = tlm.LM(cfg, device="meta")
+    assert len(model.blocks) == cfg.num_layers
+    assert set(tlm.init_cache(cfg, 1, 8, device="meta")) >= {"blocks"}
 
 
-@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_unknown_block_kind_raises():
+    cfg = tget("granite-3-2b").reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tcache.check_ported(cfg, "mamba")
+    bad = dataclasses.replace(cfg, block_pattern=("attn", "mamba"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tlm.LM(bad, device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tlm.init_cache(bad, 1, 8, device="meta")
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS + CROSS_ARCHS)
 def test_entry_points_need_cuda_without_device(arch):
     if torch.cuda.is_available():
         pytest.skip("a card is present: device=None selects it")
