@@ -33,6 +33,13 @@ The wrapper adds one to ``launch_counts["flash_attention"]`` and to the
 route's own count (``flash_attention_tensor_cores`` or
 ``flash_attention_cuda_cores``) where it launches a kernel, and nowhere
 else.
+
+Training.  The kernel has no backward, and neither has the JAX package's
+Pallas kernel: the reference trains through ``mha_ref`` and takes XLA's
+autodiff of it.  ``flash_attention_train`` runs the kernel forward and,
+in the backward, recomputes the plain attention (``ref.attention_ref``)
+from the saved q, k and v and returns its autograd's gradients, the
+counterpart of that autodiff.  No backward kernel is written.
 """
 
 from __future__ import annotations
@@ -173,3 +180,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch_counts["flash_attention"] += 1
     launch_counts["flash_attention_" + path] += 1
     return o
+
+
+class _KernelForwardPlainBackward(torch.autograd.Function):
+    """Forward: the hand kernel.  Backward: autograd of the plain
+    attention, recomputed from the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, scale)
+        return flash_attention(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            o = ref.attention_ref(*ins, *ctx.args)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(o, wrt, do))
+        return (*(next(grads) if n else None for n in need), None, None,
+                None)
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, window: Optional[int] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """``flash_attention`` with a gradient: on CUDA tensors the kernel's
+    output, differentiated through the plain attention recomputed in the
+    backward; on CPU tensors the plain attention, differentiated
+    directly."""
+    if on_cpu(q, k, v):
+        return ref.attention_ref(q, k, v, causal, window, scale)
+    return _KernelForwardPlainBackward.apply(q, k, v, causal, window, scale)

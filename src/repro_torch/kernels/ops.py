@@ -30,6 +30,9 @@ decides by the device of the tensors it is given:
     as the JAX package computes them in XLA outside any kernel.  The JAX
     package's ``impl`` switch has no counterpart: its serving path passes
     ``impl="ref"``, and the port runs the kernel there all the same.
+    Where autograd records the call (training), the kernel runs through
+    ``flash_attention.flash_attention_train``: its forward, and in the
+    backward the plain attention's gradients, recomputed.
   * The WKV6 recurrence is not in the registry either: ``wkv6()`` below
     keys on the device alone and launches the hand-written kernel
     (``wkv6.wkv6_heads``) for every CUDA call, prefill and decode step
@@ -55,6 +58,8 @@ fused form) over the ELL arrays.
 """
 
 from __future__ import annotations
+
+import torch
 
 from . import bsr_spmv as _cuda
 from . import flash_attention as _flash
@@ -146,6 +151,10 @@ def attention(q, k, v, causal=True, window=None, scale=None):
                          f"{q.shape[1]}")
     s, d = q.shape[2], q.shape[3]
     if s == k.shape[2] and s > 1 and v.shape[-1] == d:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            return _flash.flash_attention_train(q, k, v, causal, window,
+                                                scale)
         return _flash.flash_attention(q, k, v, causal, window, scale)
     return _ref.attention_ref(q, k, v, causal, window, scale)
 

@@ -14,6 +14,14 @@ and a ``cross_attn`` block's scalar ``gate`` and ``gate_mlp`` (stacked as
 stacked on one leading axis (``p["encoder"]["blocks"]``), one entry per
 encoder layer.
 ``params_to_jax`` is its inverse.
+
+Training keeps the JAX package's tree itself, as f32 tensors: the master
+weights (``masters_from_jax``, or ``masters_from_model`` of a model
+initialised in f32) and the optimizer state beside them
+(``opt_state_from_jax`` / ``opt_state_to_jax``, AdamW's and Adafactor's
+trees, ``count`` a 0-d int32).  So a checkpoint of either package names
+the same leaves, and the port's train step can start from the
+reference's parameters and state.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
+from ..train import tree as T
 from .lm import LM, layer_slots
 
 # port module path under a block → key path in the JAX block tree
@@ -94,23 +103,68 @@ def params_from_jax(cfg: ModelConfig, tree: Dict, device=None) -> LM:
 
 
 @torch.no_grad()
-def params_to_jax(cfg: ModelConfig, model: LM) -> Dict:
-    """The inverse: the JAX package's parameter tree as float32 numpy
-    arrays, block leaves stacked on the leading ``stack`` axis."""
+def masters_from_model(cfg: ModelConfig, model: LM) -> Dict:
+    """The JAX package's parameter tree of ``model``'s weights as f32
+    tensors on its device, block leaves stacked on the leading ``stack``
+    axis."""
     tree: Dict = {}
     stacks: Dict = {}
     for param, path, r in _leaf_paths(cfg, model):
-        a = param.float().cpu().numpy()
         if r is None:
-            node = tree
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = a
+            T.put(tree, path, param.float().clone())
         else:
-            stacks.setdefault(path, {})[r] = a
+            stacks.setdefault(path, {})[r] = param
     for path, rows in stacks.items():
-        node = tree
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = np.stack([rows[r] for r in sorted(rows)])
+        T.put(tree, path, torch.stack([rows[r].float()
+                                       for r in sorted(rows)]))
     return tree
+
+
+@torch.no_grad()
+def params_to_jax(cfg: ModelConfig, model: LM) -> Dict:
+    """The inverse of ``params_from_jax``: the JAX package's parameter
+    tree as float32 numpy arrays, block leaves stacked on the leading
+    ``stack`` axis."""
+    return T.tree_map(lambda t: t.cpu().numpy(),
+                      masters_from_model(cfg, model))
+
+
+def check_tree(cfg: ModelConfig, tree: Dict) -> None:
+    """Raise ``ValueError`` unless ``tree`` has exactly the leaves, and the
+    shapes, of the JAX package's parameter tree of ``cfg``."""
+    want = {}
+    for param, path, r in _leaf_paths(cfg, LM(cfg, device="meta")):
+        shape = tuple(param.shape)
+        if r is not None:
+            n = cfg.encoder_layers if path[0] == "encoder" \
+                else cfg.pattern_repeats
+            shape = (n,) + shape
+        want[path] = shape
+    have = {path: tuple(leaf.shape) for path, leaf in T.items(tree)}
+    if have != want:
+        diff = sorted(set(have.items()) ^ set(want.items()))
+        raise ValueError(f"not the parameter tree of {cfg.name}: "
+                         f"{diff[:4]}")
+
+
+def masters_from_jax(cfg: ModelConfig, tree: Dict, device=None) -> Dict:
+    """The f32 master weights of the JAX package's ``lm.init(cfg,
+    key)[0]`` tree (numpy arrays): the same tree of f32 tensors on
+    ``device``."""
+    check_tree(cfg, tree)
+    device = resolve_device(device)
+    return T.tree_map(lambda a: torch.from_numpy(
+        np.array(a, np.float32)).to(device), tree)
+
+
+def opt_state_from_jax(state: Dict, device=None) -> Dict:
+    """An AdamW or Adafactor state of the JAX package (numpy arrays) as
+    the port's: f32 tensors, ``count`` a 0-d int32, on ``device``."""
+    device = resolve_device(device)
+    return T.tree_map(lambda a: torch.from_numpy(np.array(a)).to(device),
+                      state)
+
+
+def opt_state_to_jax(state: Dict) -> Dict:
+    """The inverse: numpy arrays, ``count`` int32."""
+    return T.tree_map(lambda t: t.detach().cpu().numpy(), state)

@@ -41,6 +41,8 @@ package's tree, leaves stacked on a leading layer axis, so
 Entry points:
   init(cfg, generator, device)                   → LM (random weights)
   forward(cfg, model, tokens, extras)            → logits (B, S, V)
+  forward_train(cfg, model, batch)               → logits, aux loss
+  loss_fn(cfg, model, batch)                     → loss, metrics
   prefill(cfg, model, tokens, cache_len, extras) → last logits (B, V),
                                                    cache
   decode_step(cfg, model, cache, token, pos)     → logits (B, V), cache
@@ -54,6 +56,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
@@ -297,15 +300,17 @@ def _recurrent_block(cfg: ModelConfig, p: Block, x, c):
     ro, st = griffin.recurrent_apply(cfg, p.rec, h, c)
     c["h"].copy_(st["h"])
     c["conv"].copy_(st["conv"])
-    return _mlp_half(cfg, p, x + ro), c
+    return _mlp_half(cfg, p, x + ro)[0], c
 
 
 def _mlp_half(cfg: ModelConfig, p: Block, x, dropless: bool = False):
-    """ln2 and the MLP, or the MoE (dropless at a decode step)."""
+    """ln2 and the MLP, or the MoE (dropless at a decode step).  Returns
+    (x, the MoE's ``aux_loss`` or None)."""
     h2 = layers.norm_apply(cfg, p.ln2, x)
     if p.kind == "moe":
-        return x + moe.moe_apply(cfg, p.mlp, h2, dropless=dropless)[0]
-    return x + layers.mlp_apply(cfg, p.mlp, h2)
+        out, info = moe.moe_apply(cfg, p.mlp, h2, dropless=dropless)
+        return x + out, info["aux_loss"]
+    return x + layers.mlp_apply(cfg, p.mlp, h2), None
 
 
 def _gated_half(cfg: ModelConfig, p: Block, x, att):
@@ -322,16 +327,18 @@ def block_apply(cfg: ModelConfig, p: Block, x, *, positions, enc=None):
     """Full-sequence forward of one block (an RWKV or RG-LRU block starts
     from the zero state, as in the JAX package).  ``enc``: the
     cross-attention source (B, Skv, d) of a ``cross_attn`` or
-    ``decoder`` block."""
+    ``decoder`` block.  Returns (x, aux): a ``moe`` block's
+    ``aux_loss`` (f32), None for the other kinds."""
     if p.kind in ("rwkv", "recurrent"):
         state = cache_lib.block_cache_init(cfg, p.kind, x.shape[0], 0,
                                            device=x.device)
         block = _rwkv_block if p.kind == "rwkv" else _recurrent_block
-        return block(cfg, p, x, state)[0]
+        return block(cfg, p, x, state)[0], None
     h = layers.norm_apply(cfg, p.ln1, x)
     if p.kind == "cross_attn":
         return _gated_half(cfg, p, x, layers.attn_apply(
-            cfg, p.attn, h, positions=positions, kv_src=enc, causal=False))
+            cfg, p.attn, h, positions=positions, kv_src=enc,
+            causal=False)), None
     if cfg.attn_kind == "mla":
         x = x + layers.mla_apply(cfg, p.attn, h, positions=positions)
     else:
@@ -378,7 +385,7 @@ def block_prefill(cfg: ModelConfig, p: Block, x, *, positions, cache,
         cache["cross_v"].copy_(kv["v"])
         hx = layers.norm_apply(cfg, p.ln_x, x)
         x = x + layers._cross_attend(p.xattn, hx, kv)
-    return _mlp_half(cfg, p, x), cache
+    return _mlp_half(cfg, p, x)[0], cache
 
 
 def _local_prefill(cfg: ModelConfig, p: layers.Attention, h, positions,
@@ -440,7 +447,7 @@ def block_decode(cfg: ModelConfig, p: Block, x, c, *, pos):
         hx = layers.norm_apply(cfg, p.ln_x, x)
         x = x + layers.cross_attn_decode(
             cfg, p.xattn, hx, {"k": c["cross_k"], "v": c["cross_v"]})
-    return _mlp_half(cfg, p, x, dropless=True), c
+    return _mlp_half(cfg, p, x, dropless=True)[0], c
 
 
 # ---------------------------------------------------------------------------
@@ -472,11 +479,12 @@ def _positions(tokens):
     return torch.arange(s, device=tokens.device)[None].expand(b, s)
 
 
-@torch.no_grad()
 def encode(cfg: ModelConfig, model: LM, enc_embeds) -> torch.Tensor:
     """The encoder over the frontend stub's frame embeddings (B, S, d):
     learned positions, unmasked self-attention blocks (the flash kernel
-    on the card), ln_f.  Returns (B, S, d) in the compute dtype."""
+    on the card), ln_f.  Returns (B, S, d) in the compute dtype;
+    differentiable where the model's parameters take gradients (the
+    training step's working copy)."""
     ep = model.encoder
     x = torch.as_tensor(enc_embeds, device=model.embed.device).to(
         model.embed.dtype)
@@ -487,7 +495,7 @@ def encode(cfg: ModelConfig, model: LM, enc_embeds) -> torch.Tensor:
         h = layers.norm_apply(cfg, blk.ln1, x)
         x = x + layers.attn_apply(cfg, blk.attn, h, positions=positions,
                                   causal=False)
-        x = _mlp_half(cfg, blk, x)
+        x = _mlp_half(cfg, blk, x)[0]
     return layers.norm_apply(cfg, ep.ln_f, x)
 
 
@@ -518,8 +526,119 @@ def forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
     positions = _positions(tokens)
     enc = _enc_for(cfg, model, extras)
     for blk in model.blocks:
-        x = block_apply(cfg, blk, x, positions=positions, enc=enc)
+        x = block_apply(cfg, blk, x, positions=positions, enc=enc)[0]
     return _logits(cfg, model, x)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+# block kinds whose plain scans write their steps with ``out=`` (the WKV6
+# terms in kernels/ref.py, the RG-LRU states in models/griffin.py), which
+# autograd cannot differentiate
+UNTRAINABLE_KINDS = ("rwkv", "recurrent")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP.md for a config with a
+    block kind the port cannot train yet."""
+    bad = [k for k in UNTRAINABLE_KINDS if k in layer_kinds(cfg)]
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: training the {', '.join(bad)} block kind is not "
+            "ported (ROADMAP.md, queue 1: Training, the rest): its plain "
+            "scan writes each step with out=, which autograd cannot "
+            "differentiate")
+
+
+def _add(total, aux):
+    return aux if total is None else total if aux is None else total + aux
+
+
+def _remat(fn, x, remat: bool):
+    """fn(x) → (x, aux), its activations recomputed in the backward under
+    ``remat`` (the reference's ``jax.checkpoint`` with
+    ``nothing_saveable``: only the input is kept)."""
+    if not remat:
+        return fn(x)
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+
+
+def forward_train(cfg: ModelConfig, model: LM, batch: Dict):
+    """batch: ``tokens`` (B, S) [+ the ``img_embeds`` / ``enc_embeds``
+    stubs].  Returns (logits (B, S, V), aux): aux is the MoE blocks'
+    ``aux_loss`` summed over the superblocks and the remainder layers
+    (f32; 0 without MoE).  Differentiable: the JAX package's
+    ``forward_train``, with ``cfg.remat`` checkpointing each superblock
+    and, when ``cfg.remat_group`` > 1 divides the repeats, each group of
+    ``remat_group`` superblocks too (two levels, as the reference's
+    scan over groups).  The remainder layers are not checkpointed."""
+    check_trainable(cfg)
+    tokens = torch.as_tensor(batch["tokens"], device=model.embed.device)
+    tokens = tokens.long()
+    x = _embed(cfg, model, tokens)
+    positions = _positions(tokens)
+    enc = _enc_for(cfg, model, batch)
+    n = len(cfg.block_pattern)
+    reps, rg = cfg.pattern_repeats, cfg.remat_group
+    blocks = list(model.blocks)
+
+    def superblock(r):
+        def run(x):
+            aux = None
+            for blk in blocks[r * n:(r + 1) * n]:
+                x, a = block_apply(cfg, blk, x, positions=positions, enc=enc)
+                aux = _add(aux, a)
+            return x, aux
+        return run
+
+    def group(g):
+        def run(x):
+            aux = None
+            for r in range(g * rg, (g + 1) * rg):
+                x, a = _remat(superblock(r), x, cfg.remat)
+                aux = _add(aux, a)
+            return x, aux
+        return run
+
+    aux = None
+    if rg > 1 and reps % rg == 0:
+        for g in range(reps // rg):
+            x, a = _remat(group(g), x, cfg.remat)
+            aux = _add(aux, a)
+    else:
+        for r in range(reps):
+            x, a = _remat(superblock(r), x, cfg.remat)
+            aux = _add(aux, a)
+    for blk in blocks[reps * n:]:
+        x, a = block_apply(cfg, blk, x, positions=positions, enc=enc)
+        aux = _add(aux, a)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(cfg, model, x), aux
+
+
+def loss_fn(cfg: ModelConfig, model: LM, batch: Dict):
+    """(loss, metrics) of the JAX package's ``loss_fn``: cross-entropy in
+    f32 through logsumexp over ``loss_mask`` (all ones when absent), the
+    z-loss 1e-4 · Σ logz² · mask / denom and the MoE aux; metrics ``ce``,
+    ``zloss``, ``aux`` and ``ppl`` (0-d tensors)."""
+    logits, aux = forward_train(cfg, model, batch)
+    device = logits.device
+    labels = torch.as_tensor(batch["labels"], device=device).long()
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    ll = lf.gather(-1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(ll) if mask is None else torch.as_tensor(
+        mask, dtype=torch.float32, device=device)
+    denom = mask.sum().clamp_min(1.0)
+    ce = ((logz - ll) * mask).sum() / denom
+    zloss = 1e-4 * (logz.square() * mask).sum() / denom
+    total = ce + zloss + aux
+    return total, {"ce": ce, "zloss": zloss, "aux": aux,
+                   "ppl": torch.exp(ce)}
 
 
 def _tree_map(fn, tree):
