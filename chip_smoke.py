@@ -6,16 +6,17 @@ path, LM serving (granite-3-2b at full width), RWKV-6 serving
 full width, 8 of its 40 layers), MLA serving (minicpm3-4b at full width
 and depth), vision serving (llama-3.2-vision-11b at full width and
 depth), audio serving (whisper-tiny at full width and depth) and
-training (granite-3-2b at full width and depth), every hand-written
-kernel against its plain version.
+training (granite-3-2b and rwkv6-1.6b at full width and depth,
+recurrentgemma-9b at full width), every hand-written kernel against its
+plain version.
 
-    python3 chip_smoke.py            # everything (about 12.5 minutes)
+    python3 chip_smoke.py            # everything (about 13 minutes)
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      TF32 off for matmuls and cuDNN;
-  2. build the six CUDA libraries from ``src/repro_torch/kernels/csrc``
+  2. build the eight CUDA libraries from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, started together; sm_90a) and print the build
      time, each library's own seconds and ptxas's register report (the
      compacted SpMV library's registers and spills as a line of their
@@ -26,7 +27,8 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      each be in ptxas's log with their registers, HMMA for the chunked
      WKV6; the CUDA-core flash
      library's registers and spill bytes by dtype and padded head dim
-     (32 to 256);
+     (32 to 256); the training scans' registers and spill bytes
+     (``build_scan_kernels``);
   3. each SpMV kernel of both routes against its plain torch version on
      the card: the CA stand-in at scale 0.02 for the 4 semirings × B ∈
      {16, 32}, the fused kernels over 5 update rules × {empty, sparse,
@@ -289,15 +291,37 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      ms, tokens/s, model-FLOP share of the bf16 peak, peak memory; one
      more step under the profiler: device time and launches of the GEMMs,
      the flash forward, the plain attention's backward, the optimizer and
-     the rest, idle share; the 30.4 GB of masters and AdamW state saved
-     and restored from a template of shapes (timed, bit-equal, then
-     deleted); gate (c): reduced granite on the card with
-     tests/test_train_infra.py's end-to-end arguments loses 0.3 at least;
+     the rest, idle share; the masters and AdamW state of the first 4
+     layers (4.1 GB of the 30.4) saved and restored from a template of
+     shapes (timed, bit-equal, then deleted); gate (c): reduced granite
+     on the card with tests/test_train_infra.py's end-to-end arguments
+     loses 0.3 at least;
      gate (d): ``train_with_restarts`` at full width and 4 layers, failing
      at step 3 of 4, gives the uninterrupted run's masters and state bit
      for bit under ``torch.use_deterministic_algorithms``; the kernel's
      times at the training shape;
- 19. a JSON line with every kernel; the last line is
+ 19. training the scan families (``scan_train_phases``): the WKV6
+     backward kernel (``csrc/wkv6_backward.cu``) against its plain
+     version bit for bit at rwkv6's training shape cut to batch 2 (H 32,
+     hs 64, T 1024, bf16, init decays, nonzero ds_last) and at a short
+     f32 shape, two launches bit-equal, a backward summed in another
+     order within ``WKV_BWD_REL_L2`` and two planted faults (w_{t+1} in
+     G_{t−1}; u dropped from dk) outside it; both RG-LRU kernels
+     (``csrc/rg_lru.cu``) at recurrentgemma's shape (B 4, S 1024, ld
+     4096, f32) bit for bit, a planted off-by-one in h_{t−1} outside
+     1e-5; gates ``train_rwkv_f32_gate`` and ``train_griffin_f32_gate``:
+     2 layers at full width in f32, one step with the kernels against one
+     with the plain versions swapped in (loss 1e-5, every gradient 1e-4
+     and nonzero, masters 1e-4, launches exact); ``train`` takes 4 AdamW
+     steps of rwkv6-1.6b at full width and depth (8 x 1024, remat on:
+     48 chunked WKV6 launches and 24 backward a step) and of
+     recurrentgemma-9b at full width, 6 of 38 layers (4 x 1024: 8 RG-LRU
+     forward, 4 backward and 4 tensor-core flash launches a step); step
+     ms, tokens/s, peak memory, one profiled step each split into GEMMs,
+     scan forward and backward, flash forward, the plain attention's
+     backward, the optimizer and the rest; the three kernels' times at
+     the main paths' shapes;
+ 20. a JSON line with every kernel; the last line is
      ``{"ok": true, "device": {...}}``.
 
 Each earlier JSON line carries the card's name and power limit and the
@@ -306,6 +330,7 @@ part, call the phases from Python, e.g.
 
     python3 -c 'import chip_smoke as c; c.setup(); c.build_all(); c.rwkv_phases()'
     python3 -c 'import chip_smoke as c; c.setup(); c.train_phases()'
+    python3 -c 'import chip_smoke as c; c.setup(); c.build_all(); c.scan_train_phases()'
 """
 
 from __future__ import annotations
@@ -2728,9 +2753,10 @@ def dropped_tile_attention(q, k, v, causal=True, window=None, scale=None):
 
 
 class ops_swapped:
-    """Within the block the model's ``ops.<name>`` (``attention`` or
-    ``wkv6``) is ``fn``: the plain version for a logit check, or a
-    planted fault; never a path of the port."""
+    """Within the block the model's ``ops.<name>`` (``attention``,
+    ``wkv6``, ``wkv6_train`` or ``rg_lru_scan``) is ``fn``: the plain
+    version for a logit or gradient check, or a planted fault; never a
+    path of the port."""
 
     def __init__(self, name, fn):
         self.name, self.fn = name, fn
@@ -4687,10 +4713,19 @@ TRAIN_RESTART = dict(steps=4, batch_size=4, seq_len=512, lr=TRAIN_LR,
                      warmup=1, log_every=1, ckpt_every=2)
 TRAIN_FAIL_AT = 3
 TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+# the checkpoint's save and restore are timed on the trained state cut to
+# its first superblocks (4 of granite's 40 layers: 4.1 GB, not 30.4), the
+# bytes a second of the full one being the same path's
+TRAIN_CKPT_LAYERS = 4
 # a profiled step's device time by group: the ranges below carve out the
 # optimizer and the plain attention's backward (its recompute and its
-# autograd), the kernel names give the GEMMs and the flash forward
-TRAIN_SPLIT = {"gemm": ("gemm", "nvjet", "xmma", "cutlass"),
+# autograd), the kernel names give the scans' backward and forward, the
+# GEMMs and the flash forward
+TRAIN_SPLIT = {"scan_backward": ("wkv6_backward", "wkv6_du_reduce",
+                                 "rg_lru_backward"),
+               "scan_forward": ("wkv6_kernel", "wkv6_chunked",
+                                "rg_lru_forward"),
+               "gemm": ("gemm", "nvjet", "xmma", "cutlass"),
                "flash_forward": ("flash_attention",)}
 OPTIMIZER_RANGE = "optimizer_update"
 ATTN_BACKWARD_RANGE = "attention_plain_backward"
@@ -4713,10 +4748,26 @@ def clone_tree(tree):
     return T.tree_map(lambda t: t.clone(), tree)
 
 
-def train_cfg(layers=None, **over):
+def train_counts():
+    """The flash, WKV6 and RG-LRU kernels' launch counts, one dict."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru as trg
+    from repro_torch.kernels import wkv6 as twkv
+    return {**twkv.launch_counts, **trg.launch_counts, **fa.launch_counts}
+
+
+def reset_train_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru as trg
+    from repro_torch.kernels import wkv6 as twkv
+    for mod in (twkv, trg, fa):
+        mod.reset_launch_counts()
+
+
+def train_cfg(layers=None, arch=TRAIN_ARCH, **over):
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     if LM_REDUCED:
         cfg = cfg.reduced()
     if layers is not None:
@@ -4766,33 +4817,34 @@ def train_attention_check(gen):
     return err
 
 
-def train_f32_gate():
-    """Gate (a): granite's first TRAIN_F32_LAYERS layers at full width in
-    f32 compute, one step with the kernel's forward (the CUDA-core route
-    in f32) and one with the plain attention's, from the same masters and
-    batch: loss, every gradient (each nonzero: a forward without a
-    gradient would leave wq, wk, wv at 0) and the updated masters."""
-    import torch
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref as tref
+def train_f32_gate(arch, op, plain, want, phase, batch_size):
+    """Gates ``train_f32_gate`` (a), ``train_rwkv_f32_gate`` and
+    ``train_griffin_f32_gate``: the first TRAIN_F32_LAYERS layers of
+    ``arch`` at full width in f32 compute, one ``make_grad_fn`` step and
+    AdamW update through the kernels and one with ``ops.<op>`` swapped for
+    ``plain`` (the plain attention; the scans' plain versions, forward and
+    backward), from the same masters and batch (``batch_size`` x
+    TRAIN_SEQ): loss, every gradient (each nonzero: a kernel without a
+    gradient would leave its inputs' leaves at 0) and the updated
+    masters; the nonzero flash, WKV6 and RG-LRU launch counts exactly
+    ``want``, the plain side's none."""
     from repro_torch.train import optimizer as topt
     from repro_torch.train import step as tstep
     from repro_torch.train import tree as T
-    cfg = train_cfg(TRAIN_F32_LAYERS, compute_dtype="float32")
-    batch = train_batch(cfg)
+    cfg = train_cfg(TRAIN_F32_LAYERS, arch, compute_dtype="float32")
+    batch = train_batch(cfg, batch=batch_size)
     base = tstep.init_masters(cfg, 0, DEVICE)
     grad_fn = tstep.make_grad_fn(cfg, device=DEVICE)
     out = {}
-    for name, swap in (("kernel", None), ("plain", tref.attention_ref)):
+    for name, swap in (("kernel", None), ("plain", plain)):
         masters = clone_tree(base)
         opt = topt.make_optimizer(cfg.optimizer, topt.warmup_cosine(
             TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
-        fa.reset_launch_counts()
-        with (ops_swapped("attention", swap) if swap else
-              contextlib.nullcontext()):
+        reset_train_counts()
+        with (ops_swapped(op, swap) if swap else contextlib.nullcontext()):
             loss, _, grads = grad_fn(masters, batch)
             grads = clone_tree(grads)
-        launches = dict(fa.launch_counts)
+        launches = {k: v for k, v in train_counts().items() if v}
         zero = [k for k, g in T.items(grads) if not bool(g.abs().sum() > 0)]
         opt.update(clone_tree(grads), opt.init(masters), masters)
         out[name] = (float(loss), grads, masters, launches, zero)
@@ -4804,20 +4856,19 @@ def train_f32_gate():
                      zip(T.leaves(mk), T.leaves(mp)))
     delta_rel = tree_rel_l2(T.tree_map(lambda a, b: a - b, mk, base),
                             T.tree_map(lambda a, b: a - b, mp, base))
-    n = cfg.num_layers
-    want = {"flash_attention": 2 * n, "flash_attention_cuda_cores": 2 * n,
-            "flash_attention_tensor_cores": 0}
-    rec = dict(layers=n, loss=lk, loss_plain=lp,
+    rec = dict(arch=cfg.name, layers=cfg.num_layers, batch=batch_size,
+               seq=TRAIN_SEQ, loss=lk, loss_plain=lp,
                loss_rel=abs(lk - lp) / abs(lp), grad_rel_l2_max=grad_rel,
                master_rel_l2_max=master_rel, update_rel_l2=delta_rel,
-               zero_grads=zk + zp, launches=nk, launches_plain=np_,
-               tol=TRAIN_F32_TOL)
-    emit(phase="train_f32_gate", **rec)
+               leaves=len(T.leaves(gk)),
+               zero_grads=["/".join(k) for k in zk + zp], launches=nk,
+               launches_plain=np_, tol=TRAIN_F32_TOL)
+    emit(phase=phase, **rec)
     if rec["loss_rel"] > TRAIN_F32_TOL["loss"] or \
             grad_rel > TRAIN_F32_TOL["grad"] or \
             master_rel > TRAIN_F32_TOL["master"] or zk or zp or \
-            nk != want or np_["flash_attention"]:
-        raise AssertionError(f"train f32 gate: {rec}")
+            nk != want or np_:
+        raise AssertionError(f"{phase}: {rec} (launches expected {want})")
     return rec
 
 
@@ -4930,7 +4981,7 @@ class train_ranges_marked:
 def train_split(events, tree):
     """Device ms and launches of one profiled step by group: the kernels
     inside the optimizer's range and inside the attention backward's
-    range, then the GEMMs and the flash forward by name, and the rest."""
+    range, then the groups of TRAIN_SPLIT by name, and the rest."""
     from torch.autograd import DeviceType
     out = {n: {"ms": 0.0, "launches": 0} for n in
            (*TRAIN_SPLIT, "attention_backward", "optimizer", "rest")}
@@ -4955,44 +5006,42 @@ def train_split(events, tree):
     return out
 
 
-def train_main_path(cfg):
-    """Phase ``train_main_path``: ``train`` (the port's entry point) takes
-    TRAIN_STEPS AdamW steps of granite-3-2b at full width and depth on
-    batches of TRAIN_BATCH x TRAIN_SEQ tokens, remat on, logging every
-    step.  The flash counts are set to 0 just before and read just after:
-    80 launches a step (40 layers, forward and remat's recompute), all on
-    the tensor cores.  Returns the run's output and its record."""
+def train_main_path(cfg, batch_size, steps, want_step, phase):
+    """Phases ``train_main_path`` (granite), ``train_rwkv_main_path`` and
+    ``train_griffin_main_path``: ``train`` (the port's entry point) takes
+    ``steps`` AdamW steps of ``cfg`` on batches of ``batch_size`` x
+    TRAIN_SEQ tokens, remat on, logging every step.  The flash, WKV6 and
+    RG-LRU counts are set to 0 just before and read just after:
+    ``want_step`` a step, exactly.  Returns (the run's output, its
+    record)."""
     import math
     import torch
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.train import loop
     from repro_torch.train import tree as T
-    args = loop.TrainArgs(steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+    args = loop.TrainArgs(steps=steps, batch_size=batch_size,
                           seq_len=TRAIN_SEQ, lr=TRAIN_LR,
                           warmup=TRAIN_WARMUP, log_every=1)
     log = []
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()   # the main path starts here
+    reset_train_counts()       # the main path starts here
     t0 = time.perf_counter()
     out = loop.train(cfg, args, hooks={"on_log": log.append},
                      device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fa.launch_counts)  # the main path ends here
+    counts = train_counts()    # the main path ends here
+    launches = {k: counts[k] for k in want_step}
+    want = {k: n * steps for k, n in want_step.items()}
     peak = torch.cuda.max_memory_allocated()
-    n = cfg.num_layers
-    want = {"flash_attention": 2 * n * TRAIN_STEPS,
-            "flash_attention_tensor_cores": 2 * n * TRAIN_STEPS,
-            "flash_attention_cuda_cores": 0}
     losses = [r["loss"] for r in log]
     walls = [r["wall_s"] for r in log]
     step_s = statistics.median(b - a for a, b in zip(walls, walls[1:]))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch_size * TRAIN_SEQ
     n_params = sum(t.numel() for t in T.leaves(out["params"]))
     model_flops = 6 * n_params * tokens
-    rec = dict(arch=cfg.name, layers=n, params=n_params, steps=len(log),
-               batch=TRAIN_BATCH, seq=TRAIN_SEQ, wall_s=wall,
-               first_step_s=walls[0], step_ms=step_s * 1e3,
+    rec = dict(arch=cfg.name, layers=cfg.num_layers, params=n_params,
+               steps=len(log), batch=batch_size, seq=TRAIN_SEQ,
+               wall_s=wall, first_step_s=walls[0], step_ms=step_s * 1e3,
                tokens_per_s=tokens / step_s,
                model_flops_per_step=model_flops,
                model_flop_share=model_flops / step_s / BF16_PEAK_FLOPS,
@@ -5000,24 +5049,27 @@ def train_main_path(cfg):
                bound_with_recompute_ms=model_flops * 8 / 6
                / BF16_PEAK_FLOPS * 1e3,
                peak_gb=peak / 1e9, losses=losses,
-               grad_norms=[r["grad_norm"] for r in log], **launches)
-    emit(phase="train_main_path", **rec)
-    if launches != want or len(losses) != TRAIN_STEPS or \
+               grad_norms=[r["grad_norm"] for r in log], launches=launches,
+               launches_expected=want)
+    emit(phase=phase, **rec)
+    if launches != want or len(losses) != steps or \
             not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"train main path: launches {launches} "
-                             f"(expected {want}), losses {losses}")
+        raise AssertionError(f"{phase}: launches {launches} (expected "
+                             f"{want}), losses {losses}")
     return out, rec
 
 
-def train_profile(cfg, out):
+def train_profile(cfg, out, batch_size, steps, phase):
     """One more step on the trained state under the profiler: wall, device
-    busy time and idle share, the device time and launches by group."""
+    busy time and idle share, device ms and launches by group (the scans'
+    forward and backward, GEMMs, flash forward, the plain attention's
+    backward, the optimizer, the rest)."""
     import torch
     from repro_torch.train import optimizer as topt
     from repro_torch.train import step as tstep
     opt = topt.make_optimizer(cfg.optimizer, topt.warmup_cosine(
-        TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS + 1))
-    batch = train_batch(cfg, index=TRAIN_STEPS)
+        TRAIN_LR, TRAIN_WARMUP, steps + 1))
+    batch = train_batch(cfg, index=steps, batch=batch_size)
     with train_ranges_marked(opt) as update:
         grad_fn = tstep.make_grad_fn(cfg, device=DEVICE)
 
@@ -5028,22 +5080,32 @@ def train_profile(cfg, out):
 
         wall, events, tree = profiled_once(step)
     busy, top = device_busy(events)
-    launches = sum(e.count for e in events if "LaunchKernel" in e.key)
-    rec = dict(wall_s=wall, device_busy_s=busy if busy > 0
-               else "not measured",
+    rec = dict(arch=cfg.name, wall_s=wall,
+               device_busy_s=busy if busy > 0 else "not measured",
                idle_share=1 - busy / wall if busy > 0 else "not measured",
-               kernel_launches=launches, top=top,
-               split=train_split(events, tree))
-    emit(phase="train_step_profile", **rec)
+               kernel_launches=sum(e.count for e in events
+                                   if "LaunchKernel" in e.key),
+               top=top, split=train_split(events, tree))
+    emit(phase=phase, **rec)
     del grad_fn
     return rec
+
+
+def depth_cut(tree, n, stacked=False):
+    """``tree`` with every leaf under a "blocks" key cut to the first n
+    entries of its stack axis (the first n superblocks), as views."""
+    if isinstance(tree, dict):
+        return {k: depth_cut(v, n, stacked or k == "blocks")
+                for k, v in tree.items()}
+    return tree[:n] if stacked else tree
 
 
 def train_checkpoint_timing(out):
     """One save of the trained masters and AdamW state (the reference's
     format, synchronous) and one restore onto the card from a template of
     shapes alone, each timed; the restored leaves must equal the saved
-    ones.  Then the directory is deleted."""
+    ones.  Then the directory is deleted.  ``out`` may be cut in depth
+    (``depth_cut``)."""
     import shutil
     import torch
     from repro_torch import ckpt
@@ -5158,26 +5220,37 @@ def train_phases():
     ``train/``, ``data/`` and ``ckpt/``: the kernel at the training shape
     with its recomputed plain backward, gates (a) f32 and (b) bf16 against
     the plain attention, the main path (``train``, TRAIN_STEPS steps at
-    full width and depth), one profiled step, the full checkpoint's save
-    and restore, gates (c) learning and (d) restart.  Returns the kernels
-    line entry of the training path (launches: the main path's)."""
+    full width and depth), one profiled step, the save and restore of the
+    trained state's first TRAIN_CKPT_LAYERS layers, gates (c) learning and
+    (d) restart.  Returns the kernels line entry of the training path
+    (launches: the main path's)."""
     import gc
     import torch
+    from repro_torch.kernels import ref as tref
     phase_t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     err = train_attention_check(gen)
-    train_f32_gate()
+    n = TRAIN_F32_LAYERS
+    train_f32_gate(TRAIN_ARCH, "attention", tref.attention_ref,
+                   {"flash_attention": 2 * n,
+                    "flash_attention_cuda_cores": 2 * n},
+                   "train_f32_gate", TRAIN_BATCH)
     gc.collect()
     train_bf16_gate()
     gc.collect()
     torch.cuda.empty_cache()
     cfg = train_cfg()
-    out, rec = train_main_path(cfg)
+    n = cfg.num_layers
+    out, rec = train_main_path(
+        cfg, TRAIN_BATCH, TRAIN_STEPS,
+        {"flash_attention": 2 * n, "flash_attention_tensor_cores": 2 * n,
+         "flash_attention_cuda_cores": 0}, "train_main_path")
     gc.collect()
-    train_profile(cfg, out)
+    train_profile(cfg, out, TRAIN_BATCH, TRAIN_STEPS, "train_step_profile")
     gc.collect()
     torch.cuda.empty_cache()
-    train_checkpoint_timing(out)
+    train_checkpoint_timing({k: depth_cut(out[k], TRAIN_CKPT_LAYERS)
+                             for k in ("params", "opt_state")})
     del out
     gc.collect()
     torch.cuda.empty_cache()
@@ -5194,7 +5267,354 @@ def train_phases():
              "shape": f"D 64 training (B {TRAIN_BATCH}, S {TRAIN_SEQ})",
              "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "replaces": "src/repro/kernels/flash_attention.py:121",
-             "launches": rec["flash_attention"], "max_abs_err": err, **row}]
+             "launches": rec["launches"]["flash_attention"],
+             "max_abs_err": err, **row}]
+
+
+# -- training the scan families: rwkv6-1.6b and recurrentgemma-9b -------------
+
+# the WKV6 backward kernel against its plain version at rwkv6's training
+# shape, cut in batch for the plain version (its states and G take 2 · T·B·
+# H·hs² f32: 4.3 GB at B 2), and at a short f32 shape (B, T, H, hs)
+SCAN_WKV_CHECK_BATCH = 2
+SCAN_WKV_SHORT = (2, 77, 3, 64)
+# the limits a planted fault must fail, relative L2 of each output: the
+# kernel and the plain version agree bit for bit (same order, -fmad=false
+# on both sides), so these are the limits of a right backward summed in
+# another order (``wkv6_backward_einsum``), which must pass them: one
+# bf16 step on a share of the bf16 outputs; f32 rounding for f32 outputs
+WKV_BWD_REL_L2 = {"bfloat16": 1e-2, "float32": 1e-5}
+RG_LRU_SHAPE = (4, 1024, 4096)  # recurrentgemma's training B, S, lru_dim
+RG_LRU_REL_L2 = 1e-5
+SCAN_F32_BATCH = 2   # the plain WKV6 forward keeps T·B·H·hs² f32 terms
+SCAN_TRAIN_STEPS = 4
+RWKV_TRAIN_BATCH = 8
+GRIFFIN_TRAIN_LAYERS = 6   # two (rec, rec, local_attn) superblocks of 38
+GRIFFIN_TRAIN_BATCH = 4
+SCAN_REPLACES = {
+    "wkv6_backward": "none: the reference differentiates a lax.scan by "
+                     "XLA (src/repro/models/rwkv.py:83)",
+    "rg_lru": "none: the reference runs a lax.scan "
+              "(src/repro/models/griffin.py:43)",
+    "rg_lru_backward": "none: the reference differentiates a lax.scan by "
+                       "XLA (src/repro/models/griffin.py:43)"}
+
+
+def plain_wkv6_train(r, k, v, w, u, s0):
+    """``ops.wkv6_train`` on the plain versions, forward and backward,
+    whatever the device: the f32 gate's other side."""
+    from repro_torch.kernels import wkv6 as twkv
+    return twkv._Train.apply(r, k, v, w, u, s0, True)
+
+
+def plain_rg_lru_scan(a, g, h0):
+    """``ops.rg_lru_scan`` on the plain versions, whatever the device."""
+    from repro_torch.kernels import rg_lru as trg
+    return trg._Scan.apply(a, g, h0, True)
+
+
+def wkv6_backward_einsum(r, k, v, w, u, s0, dy, ds_last, fault=None):
+    """The WKV6 gradient in another order (a step at a time, every sum an
+    einsum), independent of the plain version: a right backward the
+    limits must pass.  ``fault``: "w_next" uses w_{t+1} for w_t in G_{t−1}
+    (the last step keeps w_T); "no_u_dk" drops the u term from dk."""
+    import torch
+    rf, kf, vf, wf, dyf = (x.float() for x in (r, k, v, w, dy))
+    uf = u.float()
+    n = rf.shape[1]
+    s, states = s0.float(), []
+    for t in range(n):
+        states.append(s)
+        s = wf[:, t, ..., None] * s + torch.einsum(
+            "bhi,bhj->bhij", kf[:, t], vf[:, t])
+    g = ds_last.float()
+    out = {x: [None] * n for x in ("dr", "dk", "dv", "dw")}
+    du = torch.zeros_like(uf)
+    for t in range(n - 1, -1, -1):
+        rt, kt, vt, dyt = rf[:, t], kf[:, t], vf[:, t], dyf[:, t]
+        sp = states[t]
+        a = torch.einsum("bhi,bhj->bhij", kt, vt)
+        out["dr"][t] = torch.einsum("bhij,bhj->bhi",
+                                    sp + uf[None, :, :, None] * a, dyt)
+        out["dw"][t] = (g * sp).sum(-1)
+        da = g + torch.einsum("bhi,bhj->bhij", rt * uf, dyt)
+        dk = torch.einsum("bhij,bhj->bhi", da, vt)
+        if fault == "no_u_dk":
+            dk = dk - rt * uf * (dyt * vt).sum(-1, keepdim=True)
+        out["dk"][t] = dk
+        out["dv"][t] = torch.einsum("bhij,bhi->bhj", da, kt)
+        du = du + (rt * kt * (dyt * vt).sum(-1, keepdim=True)).sum(0)
+        wt = wf[:, min(t + 1, n - 1)] if fault == "w_next" else wf[:, t]
+        g = wt[..., None] * g + torch.einsum("bhi,bhj->bhij", rt, dyt)
+    return (*(torch.stack(out[x], 1).to(r.dtype)
+              for x in ("dr", "dk", "dv", "dw")), du, g)
+
+
+WKV_BWD_NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def wkv6_backward_rel(got, want):
+    """Relative L2 of each of the six gradients."""
+    return {name: float((a.float() - b.float()).norm()
+                        / b.float().norm().clamp_min(1e-30))
+            for name, a, b in zip(WKV_BWD_NAMES, got, want)}
+
+
+def wkv6_backward_within(rel, dtype) -> bool:
+    """Each gradient within its limit: dr, dk, dv, dw at the inputs'
+    dtype's, du and ds0 (f32 in both) at f32's."""
+    return all(v <= WKV_BWD_REL_L2["float32" if name in ("du", "ds0")
+                                   else str(dtype).split(".")[-1]]
+               for name, v in rel.items())
+
+
+def wkv6_backward_scratch(b, t, h, hs) -> int:
+    """The backward kernel's scratch bytes, as its wrapper allocates them:
+    ceil(T / steps) checkpointed and ``steps`` recomputed states of hs²
+    f32 a (b, h), and du's (B, H, hs) partials."""
+    from repro_torch.kernels import wkv6 as twkv
+    steps = twkv.LIBRARY_BACKWARD.load().wkv6_backward_scratch_steps()
+    return 4 * b * h * ((-(-t // steps) + steps) * hs * hs + hs)
+
+
+def wkv6_backward_case(gen, what, b, t, h, hs, dtype):
+    """One shape: the kernel against its plain version bit for bit (every
+    output, its dtype), a second launch bit-equal to the first, the
+    einsum order within the limits, and both planted faults outside
+    them.  Returns max |kernel − plain| (0 when right)."""
+    import torch
+    from repro_torch.kernels import ref as tref
+    from repro_torch.kernels import wkv6 as twkv
+    r, k, v, w, u, s0 = wkv6_inputs(gen, b, t, h, hs, dtype)
+    u = u.float()
+    dy = torch.randn((b, t, h, hs), generator=gen, device=DEVICE).to(dtype)
+    ds_last = torch.randn((b, h, hs, hs), generator=gen,
+                          device=DEVICE) * 0.1
+    args = (r, k, v, w, u, s0, dy, ds_last)
+    before = twkv.launch_counts["wkv6_backward"]
+    got = twkv._launch_backward(*args)
+    again = twkv._launch_backward(*args)
+    want = tref.wkv6_heads_backward_ref(*args)
+    torch.cuda.synchronize()
+    equal = [bool(torch.equal(a, c)) and a.dtype == c.dtype
+             for a, c in zip(got, want)]
+    same = [bool(torch.equal(a, c)) for a, c in zip(got, again)]
+    err = max(float((a.float() - c.float()).abs().max())
+              for a, c in zip(got, want))
+    other = wkv6_backward_rel(wkv6_backward_einsum(*args), got)
+    faults = {f: wkv6_backward_rel(wkv6_backward_einsum(*args, fault=f),
+                                   got) for f in ("w_next", "no_u_dk")}
+    rec = dict(case=what, shape=[b, t, h, hs], dtype=str(dtype),
+               bit_equal=dict(zip(WKV_BWD_NAMES, equal)),
+               two_launches_equal=all(same), max_abs_err=err,
+               einsum_rel_l2=other, faults_rel_l2=faults,
+               tol=WKV_BWD_REL_L2,
+               launches=twkv.launch_counts["wkv6_backward"] - before,
+               scratch_mb=wkv6_backward_scratch(b, t, h, hs) / 1e6)
+    emit(phase="wkv6_backward_vs_plain", **rec)
+    if not all(equal) or not all(same) or rec["launches"] != 2 or \
+            not wkv6_backward_within(other, dtype) or \
+            any(wkv6_backward_within(f, dtype) for f in faults.values()):
+        raise AssertionError(f"wkv6 backward: {rec}")
+    return err
+
+
+def rg_lru_inputs(gen, b, s, ld):
+    """a in (0.88, 1): recurrentgemma's σ(Λ)^(8 r) at init, r in (0, 1);
+    g ~ N(0, 1) · 0.1; h0, dh, dh_last ~ N(0, 1); f32 on the card."""
+    import torch
+    a = torch.exp(-0.125 * torch.rand((b, s, ld), generator=gen,
+                                      device=DEVICE))
+    g = 0.1 * torch.randn((b, s, ld), generator=gen, device=DEVICE)
+    dh = torch.randn((b, s, ld), generator=gen, device=DEVICE)
+    h0, dh_last = (torch.randn((b, ld), generator=gen, device=DEVICE)
+                   for _ in range(2))
+    return a, g, h0, dh, dh_last
+
+
+def rg_lru_case(gen):
+    """Both RG-LRU kernels at recurrentgemma's training shape against their
+    plain versions, bit for bit; a planted off-by-one (da_t = H_t h_t in
+    place of H_t h_{t−1}) outside RG_LRU_REL_L2.  Returns max |kernel −
+    plain| over the five outputs."""
+    import torch
+    from repro_torch.kernels import ref as tref
+    from repro_torch.kernels import rg_lru as trg
+    a, g, h0, dh, dh_last = rg_lru_inputs(gen, *RG_LRU_SHAPE)
+    before = dict(trg.launch_counts)
+    h_all, h_last = trg._launch(a, g, h0)
+    grads = trg._launch_backward(a, h0, h_all, dh, dh_last)
+    want_h, want_last = tref.rg_lru_scan_ref(a, g, h0)
+    want = tref.rg_lru_scan_backward_ref(a, h0, want_h, dh, dh_last)
+    torch.cuda.synchronize()
+    got, ref_all = (h_all, h_last, *grads), (want_h, want_last, *want)
+    names = ("h", "h_last", "da", "dg", "dh0")
+    equal = {n: bool(torch.equal(x, y)) for n, x, y in
+             zip(names, got, ref_all)}
+    err = max(float((x - y).abs().max()) for x, y in zip(got, ref_all))
+    off_by_one = grads[1] * h_all                  # H_t · h_t
+    fault_rel = float((off_by_one - want[0]).norm() / want[0].norm())
+    rec = dict(shape=list(RG_LRU_SHAPE), bit_equal=equal, max_abs_err=err,
+               off_by_one_rel_l2=fault_rel, tol=RG_LRU_REL_L2,
+               launches={k: trg.launch_counts[k] - before[k]
+                         for k in before})
+    emit(phase="rg_lru_vs_plain", **rec)
+    if not all(equal.values()) or fault_rel <= RG_LRU_REL_L2 or \
+            rec["launches"] != {"rg_lru": 1, "rg_lru_backward": 1}:
+        raise AssertionError(f"rg_lru kernels: {rec}")
+    return err
+
+
+def train_scan_kernels(gen):
+    """Phase ``train_scan_kernels``: the WKV6 backward at rwkv6's training
+    shape cut in batch (H 32, hs 64, T 1024, bf16, init decays, nonzero
+    ds_last) and at a short f32 shape; both RG-LRU kernels at
+    recurrentgemma's.  Returns max |kernel − plain| by kernel."""
+    import torch
+    t0 = time.perf_counter()
+    errs = {"wkv6_backward": max(
+        wkv6_backward_case(gen, "rwkv6 training, cut in batch",
+                           SCAN_WKV_CHECK_BATCH, TRAIN_SEQ, WKV_HEADS,
+                           WKV_HS, torch.bfloat16),
+        wkv6_backward_case(gen, "short f32", *SCAN_WKV_SHORT,
+                           torch.float32))}
+    errs["rg_lru"] = errs["rg_lru_backward"] = rg_lru_case(gen)
+    torch.cuda.empty_cache()
+    emit(phase="train_scan_kernels", seconds=time.perf_counter() - t0,
+         max_abs_err=errs)
+    return errs
+
+
+def time_scan_kernels(gen, errs, launches):
+    """The three kernels at their main path's shapes: the WKV6 backward at
+    rwkv6's training batch (B 8, T 1024, H 32, hs 64, bf16), its output
+    bit-equal to the plain version's there too; both RG-LRU kernels at
+    recurrentgemma's (B 4, S 1024, ld 4096, f32).  Each call's time (CUDA
+    events, median), the kernel's device time (profiler), the bound
+    (bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s, whichever is
+    larger) and the plain version's time.  No PyTorch call computes
+    either scan: no library time.  Returns the kernels line's rows."""
+    import torch
+    from repro_torch.kernels import ref as tref
+    from repro_torch.kernels import rg_lru as trg
+    from repro_torch.kernels import wkv6 as twkv
+    b, t, h, hs = RWKV_TRAIN_BATCH, TRAIN_SEQ, WKV_HEADS, WKV_HS
+    r, k, v, w, u, s0 = wkv6_inputs(gen, b, t, h, hs, torch.bfloat16)
+    dy = torch.randn((b, t, h, hs), generator=gen,
+                     device=DEVICE).to(torch.bfloat16)
+    ds_last = torch.randn((b, h, hs, hs), generator=gen,
+                          device=DEVICE) * 0.1
+    wargs = (r, k, v, w, u.float(), s0, dy, ds_last)
+    rows = {}
+
+    def row(name, call, plain, n_bytes, n_ops, kernel):
+        ms = cuda_ms(call, reps=10)
+        t1 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        got = call()
+        torch.cuda.synchronize()
+        equal = all(bool(torch.equal(a, c)) for a, c in zip(got, want))
+        del want
+        device_ms = kernel_device_ms(call, kernel, reps=5, warmup=2)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_PEAK_FLOPS
+        rows[name] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                          bound_ms=max(t_bytes, t_ops) * 1e3,
+                          bound_by="operations" if t_ops >= t_bytes
+                          else "bytes", library_ms=None)
+        emit(phase="time", kernel=name, bytes=n_bytes, flops=n_ops,
+             bit_equal=equal, **rows[name])
+        if not equal:
+            raise AssertionError(f"{name} != plain at the main path's shape")
+
+    bt, hs2 = b * t * h * hs, b * h * hs * hs
+    row("wkv6_backward", lambda: twkv._launch_backward(*wargs),
+        lambda: tref.wkv6_heads_backward_ref(*wargs),
+        9 * bt * 2 + 3 * hs2 * 4 + 2 * h * hs * 4,
+        (14 * hs * hs + 10 * hs) * b * t * h, "wkv6_backward")
+    del r, k, v, w, dy, wargs
+    torch.cuda.empty_cache()
+    a, g, h0, dh, dh_last = rg_lru_inputs(gen, *RG_LRU_SHAPE)
+    n = a.numel()
+    h_all, _ = trg._launch(a, g, h0)
+    row("rg_lru", lambda: trg._launch(a, g, h0),
+        lambda: tref.rg_lru_scan_ref(a, g, h0), 3 * n * 4 + 2 * h0.numel()
+        * 4, 2 * n, "rg_lru_forward")
+    row("rg_lru_backward",
+        lambda: trg._launch_backward(a, h0, h_all, dh, dh_last),
+        lambda: tref.rg_lru_scan_backward_ref(a, h0, h_all, dh, dh_last),
+        5 * n * 4 + 3 * h0.numel() * 4, 3 * n, "rg_lru_backward")
+    source = {"wkv6_backward": "wkv6_backward.cu", "rg_lru": "rg_lru.cu",
+              "rg_lru_backward": "rg_lru.cu"}
+    return [{"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/" + source[name],
+             "replaces": SCAN_REPLACES[name], "launches": launches[name],
+             "max_abs_err": errs[name], **rows[name]} for name in rows]
+
+
+def scan_train_phases():
+    """Slice 8: training rwkv6-1.6b and recurrentgemma-9b through the
+    scans' hand-written backward kernels: the kernels against their plain
+    versions, the f32 gates on 2 layers, rwkv6-1.6b at full width and
+    depth and recurrentgemma-9b at full width (6 of 38 layers) through
+    ``train``, one profiled step each, the kernels' times.  Returns the
+    kernels line's rows (launches: the main paths')."""
+    import gc
+    import torch
+    from repro_torch.kernels import wkv6 as twkv
+    phase_t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    errs = train_scan_kernels(gen)
+    n = TRAIN_F32_LAYERS
+    train_f32_gate(RWKV_ARCH, "wkv6_train", plain_wkv6_train,
+                   {"wkv6": 2 * n, "wkv6_recurrent": 2 * n,
+                    "wkv6_backward": n}, "train_rwkv_f32_gate",
+                   SCAN_F32_BATCH)
+    gc.collect()
+    train_f32_gate(GRIFFIN_ARCH, "rg_lru_scan", plain_rg_lru_scan,
+                   {"rg_lru": n, "rg_lru_backward": n},
+                   "train_griffin_f32_gate", SCAN_F32_BATCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {}
+    cfg = train_cfg(arch=RWKV_ARCH)
+    n = cfg.num_layers
+    # bf16 at hs 64 and T 1024: the chunked kernel, forward and recompute
+    path = twkv.route(getattr(torch, cfg.compute_dtype), TRAIN_SEQ,
+                      cfg.rwkv_head_size)
+    want = {"wkv6": 2 * n, "wkv6_chunked": 0, "wkv6_recurrent": 0,
+            "wkv6_backward": n}
+    want["wkv6_" + path] = 2 * n
+    out, rec = train_main_path(cfg, RWKV_TRAIN_BATCH, SCAN_TRAIN_STEPS,
+                               want, "train_rwkv_main_path")
+    launches.update(rec["launches"])
+    train_profile(cfg, out, RWKV_TRAIN_BATCH, SCAN_TRAIN_STEPS,
+                  "train_rwkv_step_profile")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = train_cfg(GRIFFIN_TRAIN_LAYERS, GRIFFIN_ARCH)
+    kinds = list(cfg.block_pattern * cfg.pattern_repeats)
+    n_rec, n_local = kinds.count("recurrent"), kinds.count("local_attn")
+    out, rec = train_main_path(
+        cfg, GRIFFIN_TRAIN_BATCH, SCAN_TRAIN_STEPS,
+        {"rg_lru": 2 * n_rec, "rg_lru_backward": n_rec,
+         "flash_attention": 2 * n_local,
+         "flash_attention_tensor_cores": 2 * n_local,
+         "flash_attention_cuda_cores": 0}, "train_griffin_main_path")
+    launches.update(rec["launches"])
+    train_profile(cfg, out, GRIFFIN_TRAIN_BATCH, SCAN_TRAIN_STEPS,
+                  "train_griffin_step_profile")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = time_scan_kernels(gen, errs, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="scan_train_phases", seconds=time.perf_counter() - phase_t0,
+         device_gb=torch.cuda.memory_allocated() / 1e9)
+    return rows
 
 
 def ptxas_kernels(log, name_of) -> dict:
@@ -5228,17 +5648,19 @@ def flash_kernel_name(mangled):
 
 
 def build_all():
-    """The six libraries, one nvcc each, started together; then the
-    compacted SpMV library's registers and spills, and the ptxas report
-    and SASS of the two tensor-core libraries (attention: HGMMA; chunked
-    WKV6: HMMA)."""
+    """The eight libraries, one nvcc each, started together; then the
+    compacted SpMV library's registers and spills, the ptxas report and
+    SASS of the two tensor-core libraries (attention: HGMMA; chunked
+    WKV6: HMMA), and the training scans' registers and spills."""
     import re
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import bsr_spmv as tk
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru as trg
     from repro_torch.kernels import wkv6 as twkv
     libraries = [tk.LIBRARY, tk.LIBRARY_COMPACT, *fa.LIBRARIES.values(),
-                 twkv.LIBRARY, twkv.LIBRARY_CHUNKED]
+                 twkv.LIBRARY, twkv.LIBRARY_CHUNKED, twkv.LIBRARY_BACKWARD,
+                 trg.LIBRARY]
 
     def timed(lib):
         t1 = time.perf_counter()
@@ -5268,6 +5690,23 @@ def build_all():
     emit(phase="build_cuda_core_flash",
          library=fa.LIBRARIES["cuda_cores"].path().name,
          kernels=ptxas_kernels(log, flash_kernel_name))
+    emit(phase="build_scan_kernels", **{
+        lib.name: ptxas_kernels(lib.path().with_suffix(".log").read_text(),
+                                scan_kernel_name)
+        for lib in (twkv.LIBRARY_BACKWARD, trg.LIBRARY)})
+
+
+def scan_kernel_name(mangled):
+    """The training scans' kernels (the WKV6 backward by dtype and padded
+    head size) from their mangled names."""
+    import re
+    k = re.search(r"(wkv6_backward_kernel|wkv6_du_reduce_kernel|"
+                  r"rg_lru_forward_kernel|rg_lru_backward_kernel)"
+                  r"(?:I(\w+?)Li(\d+)E)?", mangled)
+    if k is None:
+        return None
+    return k.group(1) + (f"<{k.group(2)},{k.group(3)}>" if k.group(2)
+                         else "")
 
 
 def compact_ptxas(log) -> dict:
@@ -5477,8 +5916,10 @@ def main() -> int:
     kernels += cross_phases()
     # 18. training granite-3-2b
     kernels += train_phases()
+    # 19. training rwkv6-1.6b and recurrentgemma-9b
+    kernels += scan_train_phases()
 
-    # 19. the card, the kernels line, and the result
+    # 20. the card, the kernels line, and the result
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

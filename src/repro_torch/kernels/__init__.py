@@ -13,13 +13,17 @@
 #                           — the same on the tensor cores (wgmma + TMA):
 #                             bf16 at D 64, 128, 192 and 256
 #   csrc/wkv6.cu            — the RWKV-6 WKV recurrence (prefill, decode)
-#   bsr_spmv.py, flash_attention.py, wkv6.py
+#   csrc/wkv6_chunked.cu    — the same in chunks on the tensor cores (bf16
+#                             prefill at head size 64)
+#   csrc/wkv6_backward.cu   — the WKV recurrence's gradient (training)
+#   csrc/rg_lru.cu          — the RG-LRU scan and its gradient (training)
+#   bsr_spmv.py, flash_attention.py, wkv6.py, rg_lru.py
 #                           — build at first use, ctypes binding, checked
 #                             wrappers, launch counters
 #   autotune.py             — measured tuning of the compacted kernels'
 #                             launch knobs (KernelSpec(autotune=True))
 #   cuda_lib.py             — nvcc build + ctypes helper, device rule
-#   ops.py                  — select_kernel registry, attention(), wkv6()
-#                             (device-keyed dispatch)
+#   ops.py                  — select_kernel registry, attention(), wkv6(),
+#                             wkv6_train(), rg_lru_scan() (device-keyed)
 #   ref.py                  — the plain torch versions
 #   spec.py                 — KernelSpec

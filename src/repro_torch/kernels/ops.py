@@ -39,6 +39,12 @@ decides by the device of the tensors it is given:
     alike.  The JAX package's model runs its ``_wkv_scan`` in XLA and
     never its Pallas kernel; the port's model runs the kernel, which
     computes the same recurrence, head by head.
+  * Training differentiates the two scans through autograd Functions
+    whose backwards are hand-written kernels too: ``wkv6_train()``
+    (``wkv6.wkv6_train``: the routed forward kernel, then
+    ``csrc/wkv6_backward.cu``) and ``rg_lru_scan()``
+    (``rg_lru.rg_lru_scan``: ``csrc/rg_lru.cu``, forward and backward).
+    The JAX package differentiates its ``lax.scan``s by XLA.
 
 Nothing else reaches the plain versions on the card, and a failed build
 or launch raises: there is no fallback.
@@ -64,6 +70,7 @@ import torch
 from . import bsr_spmv as _cuda
 from . import flash_attention as _flash
 from . import ref as _ref
+from . import rg_lru as _rg_lru
 from . import wkv6 as _wkv6
 from .. import resilience
 from ..core.semiring import BUILTIN
@@ -164,3 +171,17 @@ def wkv6(r, k, v, w, u, state):
     f32 state (B, H, hs, hs) updated in place; returns y (B, T, H, hs) in
     r's dtype (``wkv6.wkv6_heads``)."""
     return _wkv6.wkv6_heads(r, k, v, w, u, state)
+
+
+def wkv6_train(r, k, v, w, u, s0):
+    """The recurrence with gradients, for training: r, k, v, w (B, T, H,
+    hs), u (H, hs) f32, s0 (B, H, hs, hs) f32; returns (y, the final
+    state), nothing written in place (``wkv6.wkv6_train``)."""
+    return _wkv6.wkv6_train(r, k, v, w, u, s0)
+
+
+def rg_lru_scan(a, g, h0):
+    """The RG-LRU scan h_t = a_t·h_{t−1} + g_t with gradients: a, g (B, S,
+    ld) f32, h0 (B, ld) f32; returns (h (B, S, ld), h_last)
+    (``rg_lru.rg_lru_scan``)."""
+    return _rg_lru.rg_lru_scan(a, g, h0)

@@ -2,8 +2,9 @@
 
 They are the ground truth the CUDA kernels are held against on the card
 (``chip_smoke.py``, the card-only tests), and the path the wrappers in
-``kernels/bsr_spmv.py``, ``kernels/flash_attention.py`` and
-``kernels/wkv6.py`` take for tensors that lie on the CPU.  Registered
+``kernels/bsr_spmv.py``, ``kernels/flash_attention.py``,
+``kernels/wkv6.py`` and ``kernels/rg_lru.py`` take for tensors that lie
+on the CPU.  Registered
 custom semirings run here on every device, and so do the attention
 shapes the flash kernel does not take (S != Skv, such as a decode step;
 D_v != D).
@@ -418,3 +419,125 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y, s = wkv6_heads_ref(r[:, :, None], k[:, :, None], v[:, :, None],
                           w[:, :, None], u[None], s0[:, None])
     return y[:, :, 0], s[:, 0]
+
+
+def _sum_ascending(x: torch.Tensor) -> torch.Tensor:
+    """Σ over the last dim, one add at a time from index 0, starting at
+    +0: the order of a kernel thread's running sum."""
+    acc = torch.zeros_like(x[..., 0])
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+WKV_BWD_BLOCK = 1 << 26  # elements of one (steps, B, H, hs, hs) block
+
+
+def wkv6_heads_backward_ref(r: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, w: torch.Tensor,
+                            u: torch.Tensor, s0: torch.Tensor,
+                            dy: torch.Tensor, ds_last: torch.Tensor):
+    """The gradient of ``wkv6_heads_ref``: the plain version of
+    ``csrc/wkv6_backward.cu``.
+
+    r, k, v, w, dy (B, T, H, hs), one float dtype (upcast to f32); u (H,
+    hs); s0 and ds_last (B, H, hs, hs), keyed [k dim i, v dim j].  With
+    S_t = diag(w_t) S_{t−1} + a_t, a_t = k_tᵀ v_t, y_t = r_t (S_{t−1} + u
+    ⊙ a_t), and G_t = ∂L/∂S_t from G_T = ds_last, in f32:
+
+        ∂L/∂a_t = (r_t ⊙ u)ᵀ dy_t + G_t        (dA below)
+        dk_t = dA v_t,   dv_t = dAᵀ k_t,   dr_t = (S_{t−1} + u ⊙ a_t) dy_t
+        dw_t = Σ_j G_t ⊙ S_{t−1},   du = Σ_{b,t} r_t ⊙ k_t (dy_t · v_t)
+        G_{t−1} = diag(w_t) G_t + r_tᵀ dy_t,   ds0 = G_0.
+
+    Returns (dr, dk, dv, dw) in r's dtype, du (H, hs) f32 and ds0 (B, H,
+    hs, hs) f32; nothing is written in place.
+
+    The arithmetic is the CUDA kernel's, in its order, every product and
+    sum rounded once (the kernel is built with -fmad=false): the states
+    S_{t−1} recomputed forward from s0 by the recurrence, every sum over
+    j (and dv's over i) ascending from 0, du summed over t from the last
+    step back, then over the batch ascending.  So the kernel and this
+    version agree bit for bit.  The states and G take 2·T·B·H·hs² floats
+    (4.3 GB at B 2, T 1024, H 32, hs 64); the rest runs over blocks of
+    steps of at most WKV_BWD_BLOCK elements."""
+    rf, kf, vf, wf, dyf = (t.float().transpose(0, 1)
+                           for t in (r, k, v, w, dy))   # (T, B, H, hs)
+    uf = u.float()
+    n, b, h, hs = rf.shape
+    s, states = s0.float(), []
+    for t in range(n):                                  # S_{t−1}
+        states.append(s)
+        s = wf[t, ..., None] * s + kf[t, ..., None] * vf[t, :, :, None, :]
+    g, grads = ds_last.float(), [None] * n
+    for t in range(n - 1, -1, -1):                      # G_t
+        grads[t] = g
+        g = wf[t, ..., None] * g + rf[t, ..., None] * dyf[t, :, :, None, :]
+    ds0 = g
+    outs = {name: [] for name in ("dr", "dk", "dv", "dw", "du")}
+    step = max(1, WKV_BWD_BLOCK // max(1, b * h * hs * hs))
+    for t0 in range(0, n, step):
+        sl = slice(t0, min(n, t0 + step))
+        sp, gt = torch.stack(states[sl]), torch.stack(grads[sl])
+        r_, k_, v_, w_, dy_ = (x[sl] for x in (rf, kf, vf, wf, dyf))
+        term = sp + uf[:, :, None] * (k_[..., :, None] * v_[..., None, :])
+        outs["dr"].append(_sum_ascending(term * dy_[..., None, :]))
+        outs["dw"].append(_sum_ascending(gt * sp))
+        da = (r_ * uf)[..., None] * dy_[..., None, :] + gt
+        outs["dk"].append(_sum_ascending(da * v_[..., None, :]))
+        outs["dv"].append(_sum_ascending(
+            (da * k_[..., :, None]).transpose(-1, -2)))
+        outs["du"].append(r_ * k_ * _sum_ascending(dy_ * v_)[..., None])
+    grads_of = {name: torch.cat(xs) if xs else rf.new_zeros(rf.shape)
+                for name, xs in outs.items()}
+    du_bt = grads_of.pop("du")                          # (T, B, H, hs)
+    acc = uf.new_zeros((b, h, hs))
+    for t in range(n - 1, -1, -1):
+        acc = acc + du_bt[t]
+    du = acc[0]
+    for i in range(1, b):
+        du = du + acc[i]
+    dr, dk, dv, dw = (grads_of[name].transpose(0, 1).to(r.dtype)
+                      for name in ("dr", "dk", "dv", "dw"))
+    return dr, dk, dv, dw, du, ds0
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU — the Griffin scan h_t = a_t·h_{t−1} + g_t, forward and backward
+# ---------------------------------------------------------------------------
+
+
+def rg_lru_scan_ref(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor):
+    """h_t = a_t·h_{t−1} + g_t over t, the plain version of
+    ``csrc/rg_lru.cu``'s forward.  a, g (B, S, ld) f32; h0 (B, ld).
+    Returns (h (B, S, ld) f32, every step's, and h_last (B, ld) f32).
+    Each step a product and a sum, each rounded once, as the kernel's
+    (built with -fmad=false): the two agree bit for bit."""
+    h, hs = h0.float(), []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + g[:, t]
+        hs.append(h)
+    if not hs:
+        return a.new_zeros(a.shape), h
+    return torch.stack(hs, 1), h
+
+
+def rg_lru_scan_backward_ref(a: torch.Tensor, h0: torch.Tensor,
+                             h_all: torch.Tensor, dh: torch.Tensor,
+                             dh_last: torch.Tensor):
+    """The gradient of ``rg_lru_scan_ref``, the plain version of
+    ``csrc/rg_lru.cu``'s backward: with H_t = dh_t + a_{t+1} H_{t+1} from
+    H_S = dh_S + dh_last, da_t = H_t h_{t−1} (h_0 = h0), dg_t = H_t and
+    dh0 = a_1 H_1.  a, h_all (the forward's h), dh (B, S, ld) f32; h0,
+    dh_last (B, ld).  Returns (da, dg (B, S, ld), dh0 (B, ld)), f32, each
+    product and sum rounded once in the kernel's order."""
+    n = a.shape[1]
+    carry, da, dg = dh_last.float(), [None] * n, [None] * n
+    for t in range(n - 1, -1, -1):
+        ht = dh[:, t] + carry
+        da[t] = ht * (h_all[:, t - 1] if t else h0.float())
+        dg[t] = ht
+        carry = a[:, t] * ht
+    if not n:
+        return a.new_zeros(a.shape), a.new_zeros(a.shape), carry
+    return torch.stack(da, 1), torch.stack(dg, 1), carry

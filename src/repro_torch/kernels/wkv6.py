@@ -38,6 +38,18 @@ matrix products sum in the tensor cores' order).
 The wrappers add one to ``launch_counts["wkv6"]`` and to the route's own
 count (``wkv6_recurrent`` or ``wkv6_chunked``) where they launch a
 kernel, and nowhere else.
+
+Training.  ``wkv6_train`` is an autograd Function with a hand-written
+backward, ``csrc/wkv6_backward.cu`` (built with ``-fmad=false``; its
+plain version ``ref.wkv6_heads_backward_ref`` agrees bit for bit).  The
+JAX package has no kernel here: it differentiates its ``lax.scan`` by
+XLA.  The forward is the routed kernel above, writing a fresh final
+state; nothing is updated in place.  The backward adds one to
+``launch_counts["wkv6_backward"]`` where it launches (the kernel and the
+batch sum of du behind it, one call).  On CPU tensors the same Function
+runs ``ref.wkv6_heads_ref`` forward and ``ref.wkv6_heads_backward_ref``
+backward, so the CPU tests check the very gradient the kernel is held
+to.
 """
 
 from __future__ import annotations
@@ -59,7 +71,10 @@ CHUNKED_HEAD_SIZE = 64   # rwkv6's head size, the chunked kernel's only one
 CHUNKED_MIN_T = 128      # below it (decode steps; the recurrent kernel's
                          # own card checks, T <= 100) the recurrence runs
 
-launch_counts = {"wkv6": 0, "wkv6_recurrent": 0, "wkv6_chunked": 0}
+BACKWARD_MAX_HEAD_SIZE = 64
+
+launch_counts = {"wkv6": 0, "wkv6_recurrent": 0, "wkv6_chunked": 0,
+                 "wkv6_backward": 0}
 
 
 def reset_launch_counts() -> None:
@@ -93,10 +108,21 @@ def _bind_chunked(lib) -> None:
     lib.wkv6_chunked_launch.restype = i
 
 
+def _bind_backward(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.wkv6_backward_launch.argtypes = [p] * 17 + [i] * 5 + [p]
+    lib.wkv6_backward_launch.restype = i
+    lib.wkv6_backward_scratch_steps.argtypes = []
+    lib.wkv6_backward_scratch_steps.restype = i
+
+
 LIBRARY = CudaLibrary("wkv6", SOURCE, NVCC_FLAGS, _bind, "wkv6_error_string")
 LIBRARY_CHUNKED = CudaLibrary("wkv6_chunked", CSRC / "wkv6_chunked.cu",
                               BASE_FLAGS, _bind_chunked,
                               "wkv6_chunked_error_string")
+LIBRARY_BACKWARD = CudaLibrary("wkv6_backward", CSRC / "wkv6_backward.cu",
+                               NVCC_FLAGS, _bind_backward,
+                               "wkv6_backward_error_string")
 
 
 def _check_shapes(r, k, v, w, u, s0):
@@ -210,3 +236,81 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_out = torch.empty_like(s0)
     y = _launch(*heads, u[None], s0[:, None], s_out[:, None])
     return y[:, :, 0], s_out
+
+
+def _launch_backward(r, k, v, w, u, s0, dy, ds_last):
+    """The backward kernel on CUDA tensors: (dr, dk, dv, dw) in r's
+    dtype, du (H, hs) f32, ds0 (B, H, hs, hs) f32."""
+    b, t, h, hs = r.shape
+    if r.dtype not in DTYPE_CODES or any(x.dtype != r.dtype
+                                         for x in (k, v, w, dy)):
+        raise TypeError(
+            f"the backward kernel takes {sorted(map(str, DTYPE_CODES))} for "
+            f"r, k, v, w and dy alike; got {r.dtype}, {k.dtype}, {v.dtype}, "
+            f"{w.dtype}, {dy.dtype}")
+    if hs > BACKWARD_MAX_HEAD_SIZE:
+        raise ValueError(f"the backward kernel takes head sizes up to "
+                         f"{BACKWARD_MAX_HEAD_SIZE}, got {hs}")
+    r, k, v, w, dy = (x.contiguous() for x in (r, k, v, w, dy))
+    expect(dy, "dy", r.dtype, r.shape)
+    for name, x in (("s0", s0), ("ds_last", ds_last)):
+        expect(x, name, torch.float32, (b, h, hs, hs))
+    expect(u, "u", torch.float32, (h, hs))
+    lib = LIBRARY_BACKWARD.load()
+    steps = lib.wkv6_backward_scratch_steps()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty((h, hs), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((b, h, hs), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty_like(s0)
+    ckpt = torch.empty(b * h * -(-t // steps) * hs * hs,
+                       dtype=torch.float32, device=r.device)
+    buf = torch.empty(b * h * steps * hs * hs, dtype=torch.float32,
+                      device=r.device)
+    ptrs = [x.data_ptr() for x in (r, k, v, w, dy, u, s0, ds_last, dr, dk,
+                                   dv, dw, du, du_part, ds0, ckpt, buf)]
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.wkv6_backward_launch(*ptrs, b, t, h, hs,
+                                      DTYPE_CODES[r.dtype], stream)
+    LIBRARY_BACKWARD.check(rc, "wkv6_backward")
+    launch_counts["wkv6_backward"] += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+class _Train(torch.autograd.Function):
+    """y and the final state of the recurrence from (r, k, v, w, u, s0),
+    and their gradients: the kernels on CUDA tensors, the plain versions
+    when ``plain`` (CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, plain):
+        ctx.plain = plain
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        if plain:
+            return ref.wkv6_heads_ref(r, k, v, w, u, s0)
+        s = torch.empty_like(s0)
+        return _launch(r, k, v, w, u, s0, s), s
+
+    @staticmethod
+    def backward(ctx, dy, ds_last):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        dy = torch.zeros_like(r) if dy is None else dy
+        ds_last = torch.zeros_like(s0) if ds_last is None else ds_last
+        fn = ref.wkv6_heads_backward_ref if ctx.plain else _launch_backward
+        return (*fn(r, k, v, w, u, s0, dy, ds_last), None)
+
+
+def wkv6_train(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
+    """The recurrence with a gradient for every input: returns (y (B, T,
+    H, hs) in r's dtype, the final state (B, H, hs, hs) f32), writing
+    nothing in place.  r, k, v, w (B, T, H, hs), one dtype (bf16 or f32
+    on the card); u (H, hs) f32; s0 (B, H, hs, hs) f32, contiguous.  On
+    the card the forward launches the routed kernel (``route``; the
+    chunked one's alignment rules hold) and the backward the backward
+    kernel (head size at most 64)."""
+    _check_shapes(r, k, v, w, u, s0)
+    for name, x in (("u", u), ("s0", s0)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+    return _Train.apply(r, k, v, w, u, s0, on_cpu(r, k, v, w, u, s0))

@@ -1,16 +1,17 @@
 """End-to-end training from the command line.
 
 By default it trains the *reduced* config of an architecture; ``--full``
-trains the full config (granite-3-2b at full width and depth fits one
-80 GB card).  Runs on the card unless ``--device cpu``.
+trains the full config (granite-3-2b and rwkv6-1.6b at full width and
+depth fit one 80 GB card).  Runs on the card unless ``--device cpu``.
+Every architecture trains, rwkv6-1.6b and recurrentgemma-9b through
+their scans' hand-written backward kernels.
 
   python -m repro_torch.launch.train --arch granite-3-2b --device cpu \\
       --steps 20 --batch 4 --seq 64
   python -m repro_torch.launch.train --arch granite-3-2b --full \\
       --steps 8 --batch 8 --seq 1024 --lr 3e-4 --ckpt-dir build/ckpt
-
-rwkv6-1.6b and recurrentgemma-9b raise ``NotImplementedError``
-(``models.lm.check_trainable``).
+  python -m repro_torch.launch.train --arch rwkv6-1.6b --full \\
+      --steps 4 --batch 8 --seq 1024 --lr 3e-4
 """
 
 from __future__ import annotations

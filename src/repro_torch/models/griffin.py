@@ -11,11 +11,13 @@ State per recurrent layer: h (B, lru_dim) + conv tap history
 
 Arithmetic as the reference's: r, i, log a, β and the scan in f32, the
 scan's output cast to the compute dtype; the depthwise conv summed tap by
-tap in the compute dtype, oldest tap first.  The time scan is a plain
-loop over t, one ``addcmul`` launch a step on the card (the reference
-runs it as ``lax.scan``, outside any Pallas kernel); the reference's
-``_TIME_CHUNK`` rematerialisation changes no value and has no
-counterpart here.
+tap in the compute dtype, oldest tap first.  Serving runs the time scan
+as a plain loop over t, one ``addcmul`` launch a step on the card (the
+reference runs it as ``lax.scan``, outside any Pallas kernel); training
+(``train=True``) runs it through ``ops.rg_lru_scan``, an autograd
+Function whose forward and backward are hand-written kernels
+(``kernels/csrc/rg_lru.cu``).  The reference's ``_TIME_CHUNK``
+rematerialisation changes no value and has no counterpart here.
 
 Dtypes.  The matrices (``w_x``, ``w_y``, ``conv_w``, ``wr``, ``wi``,
 ``w_out``) are held in the compute dtype, as everywhere in the port;
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..kernels import ops
 from . import layers
 
 _C = 8.0
@@ -69,9 +72,9 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _rg_lru(p: Recurrent, x, h0):
-    """x: (B, S, ld) post-conv, compute dtype; h0: (B, ld).  Returns
-    (y (B, S, ld) in x's dtype, h_last (B, ld) f32)."""
+def _lru_terms(p: Recurrent, x):
+    """a_t and the gated input g_t of h_t = a_t·h_{t−1} + g_t, (B, S, ld)
+    f32, from x (B, S, ld) post-conv in the compute dtype."""
     cd = x.dtype
     r = torch.sigmoid((x @ p.wr.to(cd)).float())
     i = torch.sigmoid((x @ p.wi.to(cd)).float())
@@ -79,7 +82,19 @@ def _rg_lru(p: Recurrent, x, h0):
     log_a = _C * r * log_a_base                       # (B, S, ld)
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
-    gated = (i * x.float()) * beta
+    return a, (i * x.float()) * beta
+
+
+def _rg_lru(p: Recurrent, x, h0, train: bool = False):
+    """x: (B, S, ld) post-conv, compute dtype; h0: (B, ld).  Returns
+    (y (B, S, ld) in x's dtype, h_last (B, ld) f32).  ``train``: the scan
+    through ``ops.rg_lru_scan``, differentiable (its kernels on the card);
+    else the step loop."""
+    cd = x.dtype
+    a, gated = _lru_terms(p, x)
+    if train:
+        h_all, h = ops.rg_lru_scan(a, gated, h0.float())
+        return h_all.to(cd), h
     # time-major, so each step reads and writes contiguous (B, ld) rows
     a_t = a.transpose(0, 1).contiguous()
     g_t = gated.transpose(0, 1).contiguous()
@@ -103,15 +118,16 @@ def _causal_conv(p: Recurrent, x, taps):
     return out + p.conv_b.to(cd), full[:, s:]
 
 
-def recurrent_apply(cfg: ModelConfig, p: Recurrent, x, state):
+def recurrent_apply(cfg: ModelConfig, p: Recurrent, x, state,
+                    train: bool = False):
     """x: (B, S, D); state {"h": (B, ld), "conv": (B, W-1, ld)}.  Returns
     (out (B, S, D), {"h": f32, "conv": in x's dtype}); ``state`` is not
-    written."""
+    written.  ``train``: the RG-LRU through its differentiable scan."""
     cd = x.dtype
     xr = x @ p.w_x.to(cd)
     gate = F.gelu(x @ p.w_y.to(cd), approximate="tanh")
     xc, conv_taps = _causal_conv(p, xr, state["conv"])
-    y, h_last = _rg_lru(p, xc, state["h"])
+    y, h_last = _rg_lru(p, xc, state["h"], train)
     out = (y * gate) @ p.w_out.to(cd)
     return out, {"h": h_last, "conv": conv_taps}
 

@@ -534,22 +534,28 @@ def forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
 # training
 # ---------------------------------------------------------------------------
 
-# block kinds whose plain scans write their steps with ``out=`` (the WKV6
-# terms in kernels/ref.py, the RG-LRU states in models/griffin.py), which
-# autograd cannot differentiate
-UNTRAINABLE_KINDS = ("rwkv", "recurrent")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP.md for a config with a
-    block kind the port cannot train yet."""
-    bad = [k for k in UNTRAINABLE_KINDS if k in layer_kinds(cfg)]
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {', '.join(bad)} block kind is not "
-            "ported (ROADMAP.md, queue 1: Training, the rest): its plain "
-            "scan writes each step with out=, which autograd cannot "
-            "differentiate")
+def block_train(cfg: ModelConfig, p: Block, x, *, positions, enc=None):
+    """``block_apply`` for ``forward_train``: an RWKV block through
+    ``rwkv.rwkv_time_mix_train`` and an RG-LRU block through its
+    differentiable scan (``ops.wkv6_train``, ``ops.rg_lru_scan``: their
+    backwards are hand-written kernels), each from the zero state and
+    writing no state; every other kind as ``block_apply``.  Returns (x,
+    aux)."""
+    if p.kind == "rwkv":
+        b, _, d = x.shape
+        x = x + rwkv.rwkv_time_mix_train(
+            cfg, p.rwkv, layers.norm_apply(cfg, p.ln1, x))
+        cm, _ = rwkv.rwkv_channel_mix(cfg, p.rwkv,
+                                      layers.norm_apply(cfg, p.ln2, x),
+                                      x.new_zeros((b, d)))
+        return x + cm, None
+    if p.kind == "recurrent":
+        state = cache_lib.block_cache_init(cfg, p.kind, x.shape[0], 0,
+                                           device=x.device)
+        ro, _ = griffin.recurrent_apply(
+            cfg, p.rec, layers.norm_apply(cfg, p.ln1, x), state, train=True)
+        return _mlp_half(cfg, p, x + ro)
+    return block_apply(cfg, p, x, positions=positions, enc=enc)
 
 
 def _add(total, aux):
@@ -573,8 +579,8 @@ def forward_train(cfg: ModelConfig, model: LM, batch: Dict):
     ``forward_train``, with ``cfg.remat`` checkpointing each superblock
     and, when ``cfg.remat_group`` > 1 divides the repeats, each group of
     ``remat_group`` superblocks too (two levels, as the reference's
-    scan over groups).  The remainder layers are not checkpointed."""
-    check_trainable(cfg)
+    scan over groups).  The remainder layers are not checkpointed.  Every
+    block runs through ``block_train``."""
     tokens = torch.as_tensor(batch["tokens"], device=model.embed.device)
     tokens = tokens.long()
     x = _embed(cfg, model, tokens)
@@ -588,7 +594,8 @@ def forward_train(cfg: ModelConfig, model: LM, batch: Dict):
         def run(x):
             aux = None
             for blk in blocks[r * n:(r + 1) * n]:
-                x, a = block_apply(cfg, blk, x, positions=positions, enc=enc)
+                x, a = block_train(cfg, blk, x, positions=positions,
+                                   enc=enc)
                 aux = _add(aux, a)
             return x, aux
         return run
@@ -612,7 +619,7 @@ def forward_train(cfg: ModelConfig, model: LM, batch: Dict):
             x, a = _remat(superblock(r), x, cfg.remat)
             aux = _add(aux, a)
     for blk in blocks[reps * n:]:
-        x, a = block_apply(cfg, blk, x, positions=positions, enc=enc)
+        x, a = block_train(cfg, blk, x, positions=positions, enc=enc)
         aux = _add(aux, a)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -7,6 +7,10 @@ through ``ops.wkv6``, which on the card launches the hand-written WKV6
 kernel, in prefill and at every decode step; the JAX package runs the
 same recurrence as ``_wkv_scan`` in XLA.
 
+Training runs ``rwkv_time_mix_train``: the whole sequence from the zero
+state through ``ops.wkv6_train``, whose backward is a hand-written
+kernel too; nothing is updated in place.
+
 The WKV state is f32.  The JAX model casts it to the compute dtype
 before its scan (``state.astype(cd)``; its decode step passes
 ``c["wkv"].astype(h.dtype)``), so in bf16 it rounds the state at every
@@ -107,10 +111,8 @@ def _ddlerp(p: RWKV, x, x_prev):
     return base + adj * dx[None]
 
 
-def rwkv_time_mix(cfg: ModelConfig, p: RWKV, x, state, x_prev_last):
-    """x (B, S, D); state (B, H, hs, hs) f32, updated in place by the
-    recurrence; x_prev_last (B, D), the last token of the previous chunk.
-    Returns (out, state, x's last token)."""
+def _time_mix_inputs(cfg: ModelConfig, p: RWKV, x, x_prev_last):
+    """r, k, v, w (B, S, H, hs) in x's dtype and the gate g (B, S, D)."""
     b, s, d = x.shape
     hs = cfg.rwkv_head_size
     h = d // hs
@@ -122,14 +124,44 @@ def rwkv_time_mix(cfg: ModelConfig, p: RWKV, x, state, x_prev_last):
     g = F.silu(xg @ p.wg.to(cd))
     dec = p.w0 + torch.tanh(xw @ p.dec_a.to(cd)).float() @ p.dec_b
     w = torch.exp(-torch.exp(dec)).to(cd).view(b, s, h, hs)
-    y = ops.wkv6(r, k, v, w, p.u_rounded(cd), state)
-    # per-head group norm, in f32
+    return r, k, v, w, g
+
+
+def _time_mix_out(p: RWKV, y, g):
+    """The per-head group norm of y (B, S, H, hs), in f32, then the gate
+    and the output projection."""
+    b, s, h, hs = y.shape
     yf = y.float()
     mu = yf.mean(-1, keepdim=True)
     var = (yf - mu).square().mean(-1, keepdim=True)
-    yn = ((yf - mu) * torch.rsqrt(var + 1e-5)).reshape(b, s, d) * p.ln_x
-    out = (yn.to(cd) * g) @ p.wo.to(cd)
-    return out, state, x[:, -1, :]
+    yn = ((yf - mu) * torch.rsqrt(var + 1e-5)).reshape(b, s, h * hs) \
+        * p.ln_x
+    return (yn.to(g.dtype) * g) @ p.wo.to(g.dtype)
+
+
+def rwkv_time_mix(cfg: ModelConfig, p: RWKV, x, state, x_prev_last):
+    """x (B, S, D); state (B, H, hs, hs) f32, updated in place by the
+    recurrence; x_prev_last (B, D), the last token of the previous chunk.
+    Returns (out, state, x's last token)."""
+    r, k, v, w, g = _time_mix_inputs(cfg, p, x, x_prev_last)
+    y = ops.wkv6(r, k, v, w, p.u_rounded(x.dtype), state)
+    return _time_mix_out(p, y, g), state, x[:, -1, :]
+
+
+def rwkv_time_mix_train(cfg: ModelConfig, p: RWKV, x):
+    """The time-mix half over a whole sequence from the zero state (the
+    token shift's and the recurrence's), differentiable in x and every
+    leaf: the recurrence through ``ops.wkv6_train``.  u is rounded to x's
+    dtype afresh at each call (``RWKV.u_rounded`` holds a tensor across
+    calls, which would lose u's gradient or back through a freed graph
+    under remat's recompute).  Returns out (B, S, D)."""
+    b, _, d = x.shape
+    hs = cfg.rwkv_head_size
+    r, k, v, w, g = _time_mix_inputs(cfg, p, x, x.new_zeros((b, d)))
+    s0 = torch.zeros((b, d // hs, hs, hs), dtype=torch.float32,
+                     device=x.device)
+    y, _ = ops.wkv6_train(r, k, v, w, p.u.to(x.dtype).float(), s0)
+    return _time_mix_out(p, y, g)
 
 
 def rwkv_channel_mix(cfg: ModelConfig, p: RWKV, x, x_prev_last):

@@ -96,7 +96,6 @@ def make_grad_fn(cfg: ModelConfig, accum_steps: int = 1, device=None,
     the gradients as a tree like the masters' (compute dtype, or
     ``grad_accum_dtype`` with accum_steps > 1).  The gradient tree is
     the step's buffer: the next call overwrites it."""
-    lm.check_trainable(cfg)
     device = resolve_device(device)
     work: Dict[str, Working] = {}
 

@@ -329,17 +329,6 @@ def test_remat_options_give_the_same_gradients(rng):
                                                            path)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
-def test_untrainable_kinds_raise(arch):
-    cfg = tget(arch).reduced()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue 1: Training, the rest"):
-        tlm.check_trainable(cfg)
-    with pytest.raises(NotImplementedError, match="out="):
-        tstep.make_train_step(cfg, topt.AdamW(lr=lambda c: 1e-3),
-                              device=CPU)
-
-
 # -- data, compression, the loop -----------------------------------------------
 
 
@@ -429,6 +418,3 @@ def test_launch_train_on_the_cpu(tmp_path, capsys):
                         "--seq", "16", "--local-sgd", "2",
                         "--sync-period", "1"])
     assert out["comm_bytes"] > 0
-    with pytest.raises(NotImplementedError):
-        tlaunch.main(["--device", "cpu", "--arch", "rwkv6-1.6b",
-                      "--steps", "1"])
