@@ -10,22 +10,22 @@ training (granite-3-2b and rwkv6-1.6b at full width and depth,
 recurrentgemma-9b at full width), every hand-written kernel against its
 plain version.
 
-    python3 chip_smoke.py            # everything (about 13 minutes)
+    python3 chip_smoke.py            # everything (about 14 minutes)
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      TF32 off for matmuls and cuDNN;
-  2. build the eight CUDA libraries from ``src/repro_torch/kernels/csrc``
+  2. build the nine CUDA libraries from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, started together; sm_90a) and print the build
      time, each library's own seconds and ptxas's register report (the
      compacted SpMV library's registers and spills as a line of their
-     own, by kernel and launch bound); the two tensor-core
+     own, by kernel and launch bound); the three tensor-core
      libraries must show 0 spill bytes, no "wgmma ... serialized" warning
      and tensor-core instructions in their SASS (``cuobjdump -sass``):
      HGMMA for attention, whose instances DP 64, 128, 192 and 256 must
      each be in ptxas's log with their registers, HMMA for the chunked
-     WKV6; the CUDA-core flash
+     WKV6 forward and backward; the CUDA-core flash
      library's registers and spill bytes by dtype and padded head dim
      (32 to 256); the training scans' registers and spill bytes
      (``build_scan_kernels``);
@@ -300,26 +300,46 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      at step 3 of 4, gives the uninterrupted run's masters and state bit
      for bit under ``torch.use_deterministic_algorithms``; the kernel's
      times at the training shape;
- 19. training the scan families (``scan_train_phases``): the WKV6
-     backward kernel (``csrc/wkv6_backward.cu``) against its plain
+ 19. training the scan families (``scan_train_phases``): the recurrent
+     WKV6 backward kernel (``csrc/wkv6_backward.cu``) against its plain
      version bit for bit at rwkv6's training shape cut to batch 2 (H 32,
      hs 64, T 1024, bf16, init decays, nonzero ds_last) and at a short
      f32 shape, two launches bit-equal, a backward summed in another
      order within ``WKV_BWD_REL_L2`` and two planted faults (w_{t+1} in
-     G_{t−1}; u dropped from dk) outside it; both RG-LRU kernels
+     G_{t−1}; u dropped from dk) outside it; the chunked backward kernel
+     (``csrc/wkv6_backward_chunked.cu``, the route of every bf16 hs-64
+     backward at T >= 128) at the same shape against its plain version
+     (dr, dk, dv, dw within one bf16 step, du and ds0 within 1e-5
+     relative L2) and the recurrent plain backward (``WKV_BWD_REL_L2``,
+     which the other order passes and the two faults fail), then at
+     extreme decays with zeros (every gradient finite), ragged T 777 and
+     T 128, two launches bit-equal; both RG-LRU kernels
      (``csrc/rg_lru.cu``) at recurrentgemma's shape (B 4, S 1024, ld
      4096, f32) bit for bit, a planted off-by-one in h_{t−1} outside
      1e-5; gates ``train_rwkv_f32_gate`` and ``train_griffin_f32_gate``:
      2 layers at full width in f32, one step with the kernels against one
      with the plain versions swapped in (loss 1e-5, every gradient 1e-4
-     and nonzero, masters 1e-4, launches exact); ``train`` takes 4 AdamW
+     and nonzero, masters 1e-4, launches exact: the recurrent kernels);
+     gate ``train_rwkv_bf16_backward_gate``: rwkv6-1.6b at full width
+     in bf16, batch 2, one step with the chunked backward against one
+     with the recurrent backward kernel swapped in and one with the
+     einsum order, at full depth (losses bit-equal, every gradient
+     nonzero, launches exact, each layer's six WKV6 gradients on the
+     step's own inputs within ``WKV_BWD_REL_L2`` of the recurrent
+     kernel's; the whole gradient's distances printed beside the einsum
+     order's) and on the first 2 layers (the same, and the grad norm and
+     every gradient within TRAIN_BF16_TOL for both right backwards: at
+     full depth this random model's gradient is too ill-conditioned for
+     any reordering to stay inside it); ``train`` takes 4 AdamW
      steps of rwkv6-1.6b at full width and depth (8 x 1024, remat on:
-     48 chunked WKV6 launches and 24 backward a step) and of
+     48 chunked WKV6 launches and 24 chunked backward a step, no
+     recurrent one; the profiled step counts the chunked backward's
+     kernels under the scan backward) and of
      recurrentgemma-9b at full width, 6 of 38 layers (4 x 1024: 8 RG-LRU
      forward, 4 backward and 4 tensor-core flash launches a step); step
      ms, tokens/s, peak memory, one profiled step each split into GEMMs,
      scan forward and backward, flash forward, the plain attention's
-     backward, the optimizer and the rest; the three kernels' times at
+     backward, the optimizer and the rest; the four kernels' times at
      the main paths' shapes;
  20. a JSON line with every kernel; the last line is
      ``{"ok": true, "device": {...}}``.
@@ -4720,7 +4740,9 @@ TRAIN_CKPT_LAYERS = 4
 # a profiled step's device time by group: the ranges below carve out the
 # optimizer and the plain attention's backward (its recompute and its
 # autograd), the kernel names give the scans' backward and forward, the
-# GEMMs and the flash forward
+# GEMMs and the flash forward (the chunked WKV6 backward's kernels,
+# wkv6_backward_chunked*, fall under the scan backward: the groups are
+# tried in this order)
 TRAIN_SPLIT = {"scan_backward": ("wkv6_backward", "wkv6_du_reduce",
                                  "rg_lru_backward"),
                "scan_forward": ("wkv6_kernel", "wkv6_chunked",
@@ -5289,11 +5311,15 @@ RG_LRU_REL_L2 = 1e-5
 SCAN_F32_BATCH = 2   # the plain WKV6 forward keeps T·B·H·hs² f32 terms
 SCAN_TRAIN_STEPS = 4
 RWKV_TRAIN_BATCH = 8
+# the chunked backward against the recurrent one at full width and depth
+RWKV_BF16_GATE_BATCH = 2
 GRIFFIN_TRAIN_LAYERS = 6   # two (rec, rec, local_attn) superblocks of 38
 GRIFFIN_TRAIN_BATCH = 4
 SCAN_REPLACES = {
     "wkv6_backward": "none: the reference differentiates a lax.scan by "
                      "XLA (src/repro/models/rwkv.py:83)",
+    "wkv6_backward_chunked": "none: the reference differentiates a "
+                             "lax.scan by XLA (src/repro/models/rwkv.py:83)",
     "rg_lru": "none: the reference runs a lax.scan "
               "(src/repro/models/griffin.py:43)",
     "rg_lru_backward": "none: the reference differentiates a lax.scan by "
@@ -5419,6 +5445,83 @@ def wkv6_backward_case(gen, what, b, t, h, hs, dtype):
     return err
 
 
+def wkv6_backward_chunked_scratch(b, t, h, hs) -> int:
+    """The chunked backward kernel's scratch bytes, as its wrapper
+    allocates them: the state at every sub-chunk's start, hs² f32 a (b,
+    h), and du's (B, H, hs) partials."""
+    from repro_torch.kernels import wkv6 as twkv
+    steps = twkv.LIBRARY_BACKWARD_CHUNKED.load() \
+        .wkv6_backward_chunked_scratch_steps()
+    return 4 * b * h * (-(-t // steps) * hs * hs + hs)
+
+
+def wkv6_backward_chunked_case(gen, what, b, t, h, extreme=False,
+                               faults=False):
+    """The chunked backward kernel at one shape (bf16, hs 64): against
+    ``wkv6_chunked_heads_backward_ref`` (dr, dk, dv, dw within one bf16
+    step; du and ds0 within 1e-5 relative L2: only the order inside the
+    matrix products differs) and against the recurrent plain backward
+    within WKV_BWD_REL_L2; every gradient finite; a second launch
+    bit-equal.  ``extreme``: w from 1e-6 to 1, one in 16 set to 0.  With
+    ``faults`` the einsum order must pass the same limits against the
+    recurrent plain backward and both planted faults fail them.  Returns
+    max |kernel − chunked plain| over dr, dk, dv, dw."""
+    import torch
+    from repro_torch.kernels import ref as tref
+    from repro_torch.kernels import wkv6 as twkv
+    bf16 = torch.bfloat16
+    r, k, v, w, u, s0 = wkv6_inputs(gen, b, t, h, WKV_HS, bf16)
+    if extreme:
+        x = torch.rand(w.shape, generator=gen, device=DEVICE)
+        zero = torch.rand(w.shape, generator=gen, device=DEVICE) < 1 / 16
+        w = torch.where(zero, 0.0, 10 ** (-6 * x)).to(bf16)
+    dy = torch.randn((b, t, h, WKV_HS), generator=gen,
+                     device=DEVICE).to(bf16)
+    ds_last = torch.randn((b, h, WKV_HS, WKV_HS), generator=gen,
+                          device=DEVICE) * 0.1
+    args = (r, k, v, w, u.float(), s0, dy, ds_last)
+    if twkv.route(bf16, t, WKV_HS) != "chunked":
+        raise AssertionError(f"{what}: not on the chunked route")
+    before = twkv.launch_counts["wkv6_backward_chunked"]
+    got = twkv._launch_backward_chunked(*args)
+    again = twkv._launch_backward_chunked(*args)
+    torch.cuda.synchronize()
+    launches = twkv.launch_counts["wkv6_backward_chunked"] - before
+    same = all(bool(torch.equal(a, c)) for a, c in zip(got, again))
+    del again
+    finite = {n: bool(torch.isfinite(x).all())
+              for n, x in zip(WKV_BWD_NAMES, got)}
+    want = tref.wkv6_chunked_heads_backward_ref(*args)
+    err = max(_one_bf16_step(a, c, "backward " + what, n)
+              for n, a, c in zip(WKV_BWD_NAMES[:4], got, want))
+    plain_rel = {n: v for n, v in wkv6_backward_rel(got, want).items()
+                 if n in ("du", "ds0")}
+    del want
+    rec = tref.wkv6_heads_backward_ref(*args)
+    rec_rel = wkv6_backward_rel(got, rec)
+    out = dict(case=what, shape=[b, t, h, WKV_HS], extreme=extreme,
+               two_launches_equal=same, finite=finite, launches=launches,
+               max_abs_err=err, chunked_plain_rel_l2=plain_rel,
+               recurrent_plain_rel_l2=rec_rel, tol=WKV_BWD_REL_L2,
+               scratch_mb=wkv6_backward_chunked_scratch(b, t, h, WKV_HS)
+               / 1e6)
+    if faults:
+        out["einsum_rel_l2"] = wkv6_backward_rel(
+            wkv6_backward_einsum(*args), rec)
+        out["faults_rel_l2"] = {
+            f: wkv6_backward_rel(wkv6_backward_einsum(*args, fault=f), rec)
+            for f in ("w_next", "no_u_dk")}
+    emit(phase="wkv6_backward_chunked_vs_plain", **out)
+    if not same or not all(finite.values()) or launches != 2 or \
+            any(v > 1e-5 for v in plain_rel.values()) or \
+            not wkv6_backward_within(rec_rel, bf16) or (faults and (
+                not wkv6_backward_within(out["einsum_rel_l2"], bf16) or any(
+                    wkv6_backward_within(f, bf16)
+                    for f in out["faults_rel_l2"].values()))):
+        raise AssertionError(f"wkv6 chunked backward: {out}")
+    return err
+
+
 def rg_lru_inputs(gen, b, s, ld):
     """a in (0.88, 1): recurrentgemma's σ(Λ)^(8 r) at init, r in (0, 1);
     g ~ N(0, 1) · 0.1; h0, dh, dh_last ~ N(0, 1); f32 on the card."""
@@ -5466,9 +5569,11 @@ def rg_lru_case(gen):
 
 
 def train_scan_kernels(gen):
-    """Phase ``train_scan_kernels``: the WKV6 backward at rwkv6's training
-    shape cut in batch (H 32, hs 64, T 1024, bf16, init decays, nonzero
-    ds_last) and at a short f32 shape; both RG-LRU kernels at
+    """Phase ``train_scan_kernels``: the recurrent WKV6 backward at rwkv6's
+    training shape cut in batch (H 32, hs 64, T 1024, bf16, init decays,
+    nonzero ds_last) and at a short f32 shape; the chunked one at the same
+    training shape (with the einsum order and the planted faults), at
+    extreme decays, ragged T 777 and T 128; both RG-LRU kernels at
     recurrentgemma's.  Returns max |kernel − plain| by kernel."""
     import torch
     t0 = time.perf_counter()
@@ -5478,6 +5583,17 @@ def train_scan_kernels(gen):
                            WKV_HS, torch.bfloat16),
         wkv6_backward_case(gen, "short f32", *SCAN_WKV_SHORT,
                            torch.float32))}
+    torch.cuda.empty_cache()
+    errs["wkv6_backward_chunked"] = max(
+        wkv6_backward_chunked_case(gen, "rwkv6 training, cut in batch",
+                                   SCAN_WKV_CHECK_BATCH, TRAIN_SEQ,
+                                   WKV_HEADS, faults=True),
+        wkv6_backward_chunked_case(gen, "extreme decays", 2, 512, 8,
+                                   extreme=True),
+        wkv6_backward_chunked_case(gen, "ragged T 777", 2, 777, 8),
+        wkv6_backward_chunked_case(gen, "T 128", SCAN_WKV_CHECK_BATCH, 128,
+                                   WKV_HEADS))
+    torch.cuda.empty_cache()
     errs["rg_lru"] = errs["rg_lru_backward"] = rg_lru_case(gen)
     torch.cuda.empty_cache()
     emit(phase="train_scan_kernels", seconds=time.perf_counter() - t0,
@@ -5485,15 +5601,32 @@ def train_scan_kernels(gen):
     return errs
 
 
+def wkv6_backward_chunked_ops(b, t, h, hs) -> int:
+    """The operations the chunked backward needs, per sub-chunk of 16
+    steps and head: five products of 16 x hs x hs ((r E)ᵀ dY, d(rE),
+    d(kF), (k F) Gend, and (k F)ᵀ V for the states), dA and Aᵀ dY over A's
+    136 entries (2·hs each) and A itself, and the diagonal block's
+    gradient (6 operations for each of its 120 pairs and channel), without
+    the kernel's split products (the function needs one)."""
+    sub = 16
+    per_sub = 5 * 2 * sub * hs * hs + 3 * 136 * 2 * hs + 6 * 120 * hs
+    return per_sub * b * h * -(-t // sub)
+
+
 def time_scan_kernels(gen, errs, launches):
-    """The three kernels at their main path's shapes: the WKV6 backward at
-    rwkv6's training batch (B 8, T 1024, H 32, hs 64, bf16), its output
-    bit-equal to the plain version's there too; both RG-LRU kernels at
+    """The four kernels at their main path's shapes: both WKV6 backward
+    kernels at rwkv6's training batch (B 8, T 1024, H 32, hs 64, bf16),
+    the recurrent one's output bit-equal to its plain version's there
+    too, the chunked one's dr, dk, dv, dw within one bf16 step of its
+    plain version's and du, ds0 within 1e-5; both RG-LRU kernels at
     recurrentgemma's (B 4, S 1024, ld 4096, f32).  Each call's time (CUDA
     events, median), the kernel's device time (profiler), the bound
-    (bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s, whichever is
-    larger) and the plain version's time.  No PyTorch call computes
-    either scan: no library time.  Returns the kernels line's rows."""
+    (bytes at 3.35 TB/s or operations at the peak of the units the
+    kernel computes on, the f32 CUDA cores or, for the chunked backward,
+    the bf16 tensor cores, whichever is larger) and the plain version's
+    time.  No PyTorch call computes either scan: no library time.
+    Returns the kernels line's rows; their launches are the main paths'
+    (the recurrent WKV6 backward's: ``wkv6_backward_recurrent``)."""
     import torch
     from repro_torch.kernels import ref as tref
     from repro_torch.kernels import rg_lru as trg
@@ -5507,7 +5640,17 @@ def time_scan_kernels(gen, errs, launches):
     wargs = (r, k, v, w, u.float(), s0, dy, ds_last)
     rows = {}
 
-    def row(name, call, plain, n_bytes, n_ops, kernel):
+    def bit_equal(got, want):
+        return all(bool(torch.equal(a, c)) for a, c in zip(got, want))
+
+    def chunked_close(got, want):  # _one_bf16_step raises past its limit
+        for n, a, c in zip(WKV_BWD_NAMES[:4], got, want):
+            _one_bf16_step(a, c, "backward, main path's shape", n)
+        return all(v <= 1e-5 for n, v in wkv6_backward_rel(got, want).items()
+                   if n in ("du", "ds0"))
+
+    def row(name, call, plain, n_bytes, n_ops, kernel, check=bit_equal,
+            peak=F32_PEAK_FLOPS):
         ms = cuda_ms(call, reps=10)
         t1 = time.perf_counter()
         want = plain()
@@ -5515,24 +5658,38 @@ def time_scan_kernels(gen, errs, launches):
         plain_ms = (time.perf_counter() - t1) * 1e3
         got = call()
         torch.cuda.synchronize()
-        equal = all(bool(torch.equal(a, c)) for a, c in zip(got, want))
-        del want
+        held = check(got, want)
+        del want, got
         device_ms = kernel_device_ms(call, kernel, reps=5, warmup=2)
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_PEAK_FLOPS
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak
         rows[name] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                           bound_ms=max(t_bytes, t_ops) * 1e3,
                           bound_by="operations" if t_ops >= t_bytes
                           else "bytes", library_ms=None)
         emit(phase="time", kernel=name, bytes=n_bytes, flops=n_ops,
-             bit_equal=equal, **rows[name])
-        if not equal:
+             held_to_plain=held, **rows[name])
+        if not held:
             raise AssertionError(f"{name} != plain at the main path's shape")
 
     bt, hs2 = b * t * h * hs, b * h * hs * hs
+    wkv_bytes = 9 * bt * 2 + 3 * hs2 * 4 + 2 * h * hs * 4
     row("wkv6_backward", lambda: twkv._launch_backward(*wargs),
-        lambda: tref.wkv6_heads_backward_ref(*wargs),
-        9 * bt * 2 + 3 * hs2 * 4 + 2 * h * hs * 4,
+        lambda: tref.wkv6_heads_backward_ref(*wargs), wkv_bytes,
         (14 * hs * hs + 10 * hs) * b * t * h, "wkv6_backward")
+    torch.cuda.empty_cache()
+    # the three kernels of one call: the state pass, the gradient and
+    # du's batch sum
+    row("wkv6_backward_chunked",
+        lambda: twkv._launch_backward_chunked(*wargs),
+        lambda: tref.wkv6_chunked_heads_backward_ref(*wargs), wkv_bytes,
+        wkv6_backward_chunked_ops(b, t, h, hs), "wkv6_", chunked_close,
+        BF16_PEAK_FLOPS)
+    emit(phase="time_split", kernel="wkv6_backward_chunked", device_ms={
+        name: kernel_device_ms(
+            lambda: twkv._launch_backward_chunked(*wargs), name, reps=5,
+            warmup=2)
+        for name in ("wkv6_backward_chunked_states", "wkv6_backward_chunked_"
+                     "kernel", "wkv6_du_reduce")})
     del r, k, v, w, dy, wargs
     torch.cuda.empty_cache()
     a, g, h0, dh, dh_last = rg_lru_inputs(gen, *RG_LRU_SHAPE)
@@ -5545,18 +5702,163 @@ def time_scan_kernels(gen, errs, launches):
         lambda: trg._launch_backward(a, h0, h_all, dh, dh_last),
         lambda: tref.rg_lru_scan_backward_ref(a, h0, h_all, dh, dh_last),
         5 * n * 4 + 3 * h0.numel() * 4, 3 * n, "rg_lru_backward")
-    source = {"wkv6_backward": "wkv6_backward.cu", "rg_lru": "rg_lru.cu",
-              "rg_lru_backward": "rg_lru.cu"}
+    source = {"wkv6_backward": "wkv6_backward.cu",
+              "wkv6_backward_chunked": "wkv6_backward_chunked.cu",
+              "rg_lru": "rg_lru.cu", "rg_lru_backward": "rg_lru.cu"}
+    counted = {"wkv6_backward": "wkv6_backward_recurrent"}
     return [{"name": name, "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/" + source[name],
-             "replaces": SCAN_REPLACES[name], "launches": launches[name],
+             "replaces": SCAN_REPLACES[name],
+             "launches": launches[counted.get(name, name)],
              "max_abs_err": errs[name], **rows[name]} for name in rows]
+
+
+def rwkv_bf16_sides(layers, capture):
+    """One ``make_grad_fn`` step of rwkv6-1.6b (``layers`` layers, None:
+    all) at full width in bf16, batch RWKV_BF16_GATE_BATCH x TRAIN_SEQ,
+    from the same masters and batch, for each backward standing in for
+    the chunked one: the recurrent kernel, the chunked kernel (each call's
+    inputs and outputs kept in ``capture``) and the einsum order (a right
+    backward summed otherwise, no kernel).  Returns the config and, by
+    side, the loss, the gradients (the recurrent side's) or their
+    distances from the recurrent side's, the grad norm and the
+    launches."""
+    from repro_torch.kernels import wkv6 as twkv
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    from repro_torch.train import tree as T
+    cfg = train_cfg(layers, RWKV_ARCH)
+    batch = train_batch(cfg, batch=RWKV_BF16_GATE_BATCH)
+    masters = tstep.init_masters(cfg, 0, DEVICE)
+    grad_fn = tstep.make_grad_fn(cfg, device=DEVICE)
+    chunked = twkv._launch_backward_chunked
+
+    def kept(*args):
+        out = chunked(*args)
+        capture.append(([x.detach().clone() for x in args],
+                        [x.clone() for x in out]))
+        return out
+
+    sides = {}
+    for name, launcher in (("recurrent", twkv._launch_backward),
+                           ("chunked", kept),
+                           ("einsum", wkv6_backward_einsum)):
+        twkv._launch_backward_chunked = launcher
+        reset_train_counts()
+        try:
+            loss, _, grads = grad_fn(masters, batch)
+            grads = clone_tree(grads)
+        finally:
+            twkv._launch_backward_chunked = chunked
+        side = dict(loss=float(loss), grad_norm=float(topt.global_norm(
+            grads)), launches={k: v for k, v in train_counts().items() if v},
+            zero=["/".join(path) for path, g in T.items(grads)
+                  if not bool(g.abs().sum() > 0)])
+        if name == "recurrent":
+            base = grads
+        else:
+            leaf = {"/".join(path): tree_rel_l2({0: a}, {0: b})
+                    for (path, a), b in zip(T.items(grads), T.leaves(base))}
+            worst = max(leaf, key=leaf.get)
+            side.update(grad_rel_l2=tree_rel_l2(grads, base),
+                        leaf_rel_l2_max=leaf[worst], leaf_worst=worst)
+        del grads
+        sides[name] = side
+    del base, masters, grad_fn
+    for side in sides.values():
+        r = sides["recurrent"]
+        side["grad_norm_rel"] = abs(side["grad_norm"] - r["grad_norm"]) \
+            / r["grad_norm"]
+    return cfg, sides
+
+
+def train_rwkv_bf16_backward_gate():
+    """Gate ``train_rwkv_bf16_backward_gate``: rwkv6-1.6b at full width
+    in bf16, batch RWKV_BF16_GATE_BATCH x TRAIN_SEQ, one step with the
+    chunked backward kernel (the main path's) against one with the
+    recurrent backward kernel swapped in for it and one with the einsum
+    order (``rwkv_bf16_sides``), at full depth and on the first
+    TRAIN_F32_LAYERS layers.  Both depths: the forward is the same
+    chunked kernel on every side, so the losses must be bit-equal; every
+    gradient nonzero; the launches exact.  Full depth: each of the 24
+    backward calls' six gradients, on that step's own inputs, within
+    WKV_BWD_REL_L2 of the recurrent kernel's; the whole gradient's
+    distances are printed beside the einsum order's, not held: at random
+    init this model's grad norm is 630 on 2 layers and 6.7e4 on 24, and a
+    right reordering of the WKV sums moves the whole gradient far past
+    TRAIN_BF16_TOL (the einsum order read 0.254, its grad norm 0.135 off,
+    on an H100 80GB HBM3 at 700 W).  On the first TRAIN_F32_LAYERS
+    layers, where the einsum order passes (5.4e-3), the grad norm and
+    every leaf's gradient within TRAIN_BF16_TOL, for the chunked kernel
+    and the einsum order alike."""
+    import torch
+    from repro_torch.kernels import wkv6 as twkv
+    out = {}
+    for depth, layers in (("full", None), ("first", TRAIN_F32_LAYERS)):
+        calls = []
+        cfg, sides = rwkv_bf16_sides(layers, calls)
+        n = cfg.num_layers
+        common = {"wkv6": 2 * n, "wkv6_chunked": 2 * n}
+        want = {"recurrent": {**common, "wkv6_backward": n,
+                              "wkv6_backward_recurrent": n},
+                "chunked": {**common, "wkv6_backward": n,
+                            "wkv6_backward_chunked": n},
+                "einsum": common}
+        per_layer = {}
+        if depth == "full":
+            for args, got in calls:  # outside the counted steps
+                rel = wkv6_backward_rel(got, twkv._launch_backward(*args))
+                for k, v in rel.items():
+                    per_layer[k] = max(per_layer.get(k, 0.0), v)
+        del calls
+        torch.cuda.empty_cache()
+        rec = dict(depth=depth, arch=cfg.name, layers=n,
+                   batch=RWKV_BF16_GATE_BATCH, seq=TRAIN_SEQ, sides=sides,
+                   per_layer_rel_l2_max=per_layer, tol=TRAIN_BF16_TOL,
+                   per_layer_tol=WKV_BWD_REL_L2)
+        emit(phase="train_rwkv_bf16_backward_gate", **rec)
+        losses = {side["loss"] for side in sides.values()}
+        bad = len(losses) != 1 or any(
+            side["zero"] or side["launches"] != want[name]
+            for name, side in sides.items())
+        if depth == "full":
+            bad |= not per_layer or not wkv6_backward_within(
+                per_layer, torch.bfloat16)
+        else:
+            bad |= any(sides[name][key] > TRAIN_BF16_TOL[tol]
+                       for name in ("chunked", "einsum")
+                       for key, tol in (("grad_norm_rel", "grad_norm"),
+                                        ("grad_rel_l2", "grad"),
+                                        ("leaf_rel_l2_max", "grad")))
+        if bad:
+            raise AssertionError(f"train_rwkv_bf16_backward_gate: {rec} "
+                                 f"(launches expected {want})")
+        out[depth] = rec
+    return out
+
+
+def check_scan_split(rec, n, phase):
+    """The profiled rwkv6 step must count the chunked backward's three
+    kernels a layer (the state pass, the gradient, du's batch sum) under
+    the scan backward and the chunked forward's two a layer (forward and
+    recompute) under the scan forward, unless the profiler recorded no
+    device event."""
+    split = rec["split"]
+    got = {g: split[g]["launches"] for g in ("scan_backward",
+                                             "scan_forward")}
+    want = {"scan_backward": 3 * n, "scan_forward": 2 * n}
+    emit(phase=phase, scan_launches=got, expected=want,
+         recorded=rec["device_busy_s"] != "not measured")
+    if rec["device_busy_s"] != "not measured" and got != want:
+        raise AssertionError(f"{phase}: the profiled step's scan launches "
+                             f"{got}, expected {want}")
 
 
 def scan_train_phases():
     """Slice 8: training rwkv6-1.6b and recurrentgemma-9b through the
     scans' hand-written backward kernels: the kernels against their plain
-    versions, the f32 gates on 2 layers, rwkv6-1.6b at full width and
+    versions, the f32 gates on 2 layers, rwkv6's bf16 gate of the chunked
+    backward against the recurrent one, rwkv6-1.6b at full width and
     depth and recurrentgemma-9b at full width (6 of 38 layers) through
     ``train``, one profiled step each, the kernels' times.  Returns the
     kernels line's rows (launches: the main paths')."""
@@ -5569,28 +5871,36 @@ def scan_train_phases():
     n = TRAIN_F32_LAYERS
     train_f32_gate(RWKV_ARCH, "wkv6_train", plain_wkv6_train,
                    {"wkv6": 2 * n, "wkv6_recurrent": 2 * n,
-                    "wkv6_backward": n}, "train_rwkv_f32_gate",
-                   SCAN_F32_BATCH)
+                    "wkv6_backward": n, "wkv6_backward_recurrent": n},
+                   "train_rwkv_f32_gate", SCAN_F32_BATCH)
     gc.collect()
     train_f32_gate(GRIFFIN_ARCH, "rg_lru_scan", plain_rg_lru_scan,
                    {"rg_lru": n, "rg_lru_backward": n},
                    "train_griffin_f32_gate", SCAN_F32_BATCH)
     gc.collect()
     torch.cuda.empty_cache()
+    train_rwkv_bf16_backward_gate()
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = {}
     cfg = train_cfg(arch=RWKV_ARCH)
     n = cfg.num_layers
-    # bf16 at hs 64 and T 1024: the chunked kernel, forward and recompute
+    # bf16 at hs 64 and T 1024: the chunked kernels, forward and recompute,
+    # and the chunked backward
     path = twkv.route(getattr(torch, cfg.compute_dtype), TRAIN_SEQ,
                       cfg.rwkv_head_size)
     want = {"wkv6": 2 * n, "wkv6_chunked": 0, "wkv6_recurrent": 0,
-            "wkv6_backward": n}
+            "wkv6_backward": n, "wkv6_backward_chunked": 0,
+            "wkv6_backward_recurrent": 0}
     want["wkv6_" + path] = 2 * n
+    want["wkv6_backward_" + path] = n
     out, rec = train_main_path(cfg, RWKV_TRAIN_BATCH, SCAN_TRAIN_STEPS,
                                want, "train_rwkv_main_path")
     launches.update(rec["launches"])
-    train_profile(cfg, out, RWKV_TRAIN_BATCH, SCAN_TRAIN_STEPS,
-                  "train_rwkv_step_profile")
+    prof = train_profile(cfg, out, RWKV_TRAIN_BATCH, SCAN_TRAIN_STEPS,
+                         "train_rwkv_step_profile")
+    if path == "chunked":
+        check_scan_split(prof, n, "train_rwkv_scan_split")
     del out
     gc.collect()
     torch.cuda.empty_cache()
@@ -5648,10 +5958,11 @@ def flash_kernel_name(mangled):
 
 
 def build_all():
-    """The eight libraries, one nvcc each, started together; then the
+    """The nine libraries, one nvcc each, started together; then the
     compacted SpMV library's registers and spills, the ptxas report and
-    SASS of the two tensor-core libraries (attention: HGMMA; chunked
-    WKV6: HMMA), and the training scans' registers and spills."""
+    SASS of the three tensor-core libraries (attention: HGMMA; chunked
+    WKV6 forward and backward: HMMA), and the training scans' registers
+    and spills."""
     import re
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import bsr_spmv as tk
@@ -5660,7 +5971,7 @@ def build_all():
     from repro_torch.kernels import wkv6 as twkv
     libraries = [tk.LIBRARY, tk.LIBRARY_COMPACT, *fa.LIBRARIES.values(),
                  twkv.LIBRARY, twkv.LIBRARY_CHUNKED, twkv.LIBRARY_BACKWARD,
-                 trg.LIBRARY]
+                 twkv.LIBRARY_BACKWARD_CHUNKED, trg.LIBRARY]
 
     def timed(lib):
         t1 = time.perf_counter()
@@ -5686,6 +5997,7 @@ def build_all():
                        sm90_flash_instance,
                        [f"DP {d}" for d in fa.TENSOR_CORE_HEAD_DIMS])
     tensor_core_report(twkv.LIBRARY_CHUNKED.path(), "HMMA")
+    tensor_core_report(twkv.LIBRARY_BACKWARD_CHUNKED.path(), "HMMA")
     log = fa.LIBRARIES["cuda_cores"].path().with_suffix(".log").read_text()
     emit(phase="build_cuda_core_flash",
          library=fa.LIBRARIES["cuda_cores"].path().name,

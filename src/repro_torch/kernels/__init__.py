@@ -15,7 +15,12 @@
 #   csrc/wkv6.cu            — the RWKV-6 WKV recurrence (prefill, decode)
 #   csrc/wkv6_chunked.cu    — the same in chunks on the tensor cores (bf16
 #                             prefill at head size 64)
-#   csrc/wkv6_backward.cu   — the WKV recurrence's gradient (training)
+#   csrc/wkv6_backward.cu   — the WKV recurrence's gradient (training),
+#                             step by step on the CUDA cores: f32, short
+#                             T, head sizes other than 64
+#   csrc/wkv6_backward_chunked.cu
+#                           — the same in chunks on the tensor cores: the
+#                             backward of every chunked forward
 #   csrc/rg_lru.cu          — the RG-LRU scan and its gradient (training)
 #   bsr_spmv.py, flash_attention.py, wkv6.py, rg_lru.py
 #                           — build at first use, ctypes binding, checked

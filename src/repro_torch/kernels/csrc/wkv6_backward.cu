@@ -4,9 +4,13 @@
 // Replaces no Pallas kernel: the JAX package trains through XLA's
 // autodiff of its `lax.scan` (`_wkv_scan`, src/repro/models/rwkv.py).  On
 // the card a scan on the hot path is a kernel, so the port's training
-// differentiates its forward kernels (csrc/wkv6.cu, csrc/wkv6_chunked.cu)
-// with this one.  Bound to Python with ctypes by kernels/wkv6.py
-// (`wkv6_train`).
+// differentiates its forward kernels with this one and with
+// csrc/wkv6_backward_chunked.cu.  Bound to Python with ctypes by
+// kernels/wkv6.py (`wkv6_train`), which sends here the backward of every
+// input the forward's route gives the recurrent kernel (csrc/wkv6.cu):
+// f32 (the f32 gates), T < 128 and head sizes other than 64; the
+// chunked route's (bf16, hs 64, T >= 128: rwkv6-1.6b's training) goes to
+// the chunked backward.
 //
 // What it computes.  The forward, per (batch, head), per step t, in f32:
 //   a_t = k_tᵀ v_t,   y_t = r_t (S_{t−1} + u ⊙ a_t),

@@ -657,6 +657,13 @@ int wkv6_chunked_launch(const void* r, const void* k, const void* v,
   if (!aligned16(r) || !aligned16(k) || !aligned16(v) || !aligned16(w) ||
       !aligned16(y))
     return -2;
+  // a runtime call first: it makes the device's context current in this
+  // thread (where this may be the first CUDA call), which the map encoder
+  // needs
+  const int bytes = static_cast<int>(sizeof(Smem)) + 128;  // + alignment
+  cudaError_t err = cudaFuncSetAttribute(
+      wkv6_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return -3;
   Maps maps;
@@ -671,10 +678,6 @@ int wkv6_chunked_launch(const void* r, const void* k, const void* v,
   a.s_out = s_out;
   for (int i = 0; i < 3; ++i) a.ys[i] = strides[12 + i];
   a.steps = T; a.H = H;
-  const int bytes = static_cast<int>(sizeof(Smem)) + 128;  // + alignment
-  cudaError_t err = cudaFuncSetAttribute(
-      wkv6_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
   wkv6_chunked_kernel<<<B * H, THREADS, bytes, (cudaStream_t)stream>>>(maps,
                                                                        a);
   return (int)cudaGetLastError();

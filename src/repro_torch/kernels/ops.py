@@ -41,7 +41,8 @@ decides by the device of the tensors it is given:
     computes the same recurrence, head by head.
   * Training differentiates the two scans through autograd Functions
     whose backwards are hand-written kernels too: ``wkv6_train()``
-    (``wkv6.wkv6_train``: the routed forward kernel, then
+    (``wkv6.wkv6_train``: the routed forward kernel, then the same
+    route's backward, ``csrc/wkv6_backward_chunked.cu`` or
     ``csrc/wkv6_backward.cu``) and ``rg_lru_scan()``
     (``rg_lru.rg_lru_scan``: ``csrc/rg_lru.cu``, forward and backward).
     The JAX package differentiates its ``lax.scan``s by XLA.

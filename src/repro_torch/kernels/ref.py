@@ -323,14 +323,15 @@ def wkv6_diag_block(r, k, w, u):
     u broadcastable to r[..., 0, :].  The decay e^{c_{i−1} − c_j} is the
     product of the w strictly between the two steps, taken as the kernel
     takes it: k_j carried down the sub-chunk and multiplied by w_i once
-    row i has read it."""
+    row i has read it (out of place, so autograd runs through it)."""
     sub = r.shape[-2]
     a = r.new_zeros(r.shape[:-1] + (sub,))
-    kd = k.clone()
+    kd = k
     for i in range(sub):
         a[..., i, :i] = (r[..., i, None, :] * kd[..., :i, :]).sum(-1)
         a[..., i, i] = (r[..., i, :] * u * k[..., i, :]).sum(-1)
-        kd[..., :i, :] *= w[..., i, None, :]
+        kd = torch.cat([kd[..., :i, :] * w[..., i, None, :], kd[..., i:, :]],
+                       -2)
     return a
 
 
@@ -500,6 +501,135 @@ def wkv6_heads_backward_ref(r: torch.Tensor, k: torch.Tensor,
     dr, dk, dv, dw = (grads_of[name].transpose(0, 1).to(r.dtype)
                       for name in ("dr", "dk", "dv", "dw"))
     return dr, dk, dv, dw, du, ds0
+
+
+def wkv6_diag_block_backward(r, k, w, u, da):
+    """The gradient of ``wkv6_diag_block`` given dA (lower triangle and
+    diagonal), per channel d: (dr, dk, dw) of the block, each like r.
+
+    With P(s, t) = Π_{s<m<t} w_m and X_{q,t} = Σ_{s<t} dA_qs k_s P(s, t)
+    (X_{q,t+1} = w_t X_{q,t} + dA_qt k_t):
+        dr_t = X_{t,t} + dA_tt u k_t,
+        dk_t = Σ_{q>t} dA_qt r_q P(t, q) + dA_tt u r_t,
+        dw_t = Σ_{q>t} r_q P(t, q) X_{q,t},
+    the last the derivative of every P(s, q) with s < t < q by its factor
+    w_t, as the product of the others: no division.  One pass over t, an
+    inner one over q > t carrying P(t, q) upwards; the kernel's order."""
+    sub = r.shape[-2]
+    x = [torch.zeros_like(r[..., 0, :]) for _ in range(sub)]
+    dr, dk, dw = [], [], []
+    for t in range(sub):
+        rt, kt = r[..., t, :], k[..., t, :]
+        dtt = da[..., t, t, None] * u
+        dr.append(x[t] + dtt * kt)
+        pp = torch.ones_like(rt)
+        h, dkd = torch.zeros_like(rt), torch.zeros_like(rt)
+        for q in range(t + 1, sub):
+            rp = r[..., q, :] * pp
+            h = h + x[q] * rp
+            dkd = dkd + da[..., q, t, None] * rp
+            pp = pp * w[..., q, :]
+        dk.append(dkd + dtt * r[..., t, :])
+        dw.append(h)
+        for q in range(t + 1, sub):
+            x[q] = w[..., t, :] * x[q] + da[..., q, t, None] * kt
+    return torch.stack(dr, -2), torch.stack(dk, -2), torch.stack(dw, -2)
+
+
+def wkv6_chunked_heads_backward_ref(r: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, w: torch.Tensor,
+                                    u: torch.Tensor, s0: torch.Tensor,
+                                    dy: torch.Tensor,
+                                    ds_last: torch.Tensor):
+    """The gradient of ``wkv6_chunked_heads_ref`` in its blocking: the
+    plain version of ``csrc/wkv6_backward_chunked.cu``.
+
+    Arguments and results as ``wkv6_heads_backward_ref``.  Per sub-chunk
+    of WKV_SUB steps (the last padded with r = k = v = dy = 0, w = 1),
+    with S its start state, E, F, G and A as the forward forms them, dY
+    its dy and Gend = ∂L/∂S at its end (ds_last for the last one):
+
+        ∂L/∂S  = G ⊙_rows Gend + (r E)ᵀ dY       (carried back; ds0)
+        dV     = Aᵀ dY + (k F) Gend,     dA = tril(dY Vᵀ)
+        d(rE)  = dY Sᵀ,  d(kF) = V Gendᵀ,  dG = Σ_j Gend ⊙ S
+        dr     = d(rE) E + the block's (``wkv6_diag_block_backward``)
+        dk     = d(kF) F + the block's,   du = Σ_{b,t} dA_tt r_t ⊙ k_t
+        dw_t   = E_t (R_t + F_t dG) + F_t L_t + the block's,
+
+    R_t = Σ_{q>t} d(rE)_q r_q P(t, q) and L_t = Σ_{s<t} d(kF)_s k_s P(s,
+    t) running back and forth over the sub-chunk: the derivative of each
+    product of w by one factor as the product of the others, with no
+    logarithm, exponential or division, so w = 0 gives exact, finite
+    gradients.  The start states come from the forward's recurrence over
+    sub-chunks.  With bf16 inputs every matrix product is formed as the
+    kernel forms it (``_mm_split``; dy, v and k are bf16 already, and dY
+    Vᵀ is exact in f32), the state and ∂L/∂S carried in f32; in f32 it
+    rounds nothing.  Against the kernel only the order of the sums
+    differs.  The states and ∂L/∂S take T/16·B·H·hs² floats each (67 MB
+    at B 2, T 1024, H 32, hs 64)."""
+    b, n, h, hs = r.shape
+    sub = WKV_SUB
+    mm = _mm_split if r.dtype == torch.bfloat16 else torch.matmul
+    pad = -n % sub
+    ns = (n + pad) // sub
+
+    def subs(x, fill):  # (B, T, H, hs) → (B, H, ns, sub, hs) f32
+        x = torch.nn.functional.pad(x.float().transpose(1, 2),
+                                    (0, 0, 0, pad), value=fill)
+        return x.reshape(b, h, ns, sub, hs)
+
+    rr, kk, vv, dyy = (subs(x, 0.0) for x in (r, k, v, dy))
+    ww = subs(w, 1.0)
+    uf = u.float()[None, :, None, :]
+    e = [torch.ones_like(ww[..., 0, :])]
+    for t in range(sub):
+        e.append(e[-1] * ww[..., t, :])
+    g = e.pop()                                       # G (B, H, ns, hs)
+    f = [torch.ones_like(g)]
+    for t in range(sub - 1, 0, -1):
+        f.append(f[-1] * ww[..., t, :])
+    ee, ff = torch.stack(e, -2), torch.stack(f[::-1], -2)
+    re, kf = rr * ee, kk * ff                         # (B, H, ns, sub, hs)
+    a = wkv6_diag_block(rr, kk, ww, uf)
+    s, states = s0.float(), []
+    for p in range(ns):
+        states.append(s)
+        s = g[:, :, p, :, None] * s + mm(kf[:, :, p].transpose(-1, -2),
+                                         vv[:, :, p])
+    gacc, gends = ds_last.float(), [None] * ns
+    for p in range(ns - 1, -1, -1):
+        gends[p] = gacc
+        gacc = g[:, :, p, :, None] * gacc + mm(
+            re[:, :, p].transpose(-1, -2), dyy[:, :, p])
+    ss, gend = torch.stack(states, 2), torch.stack(gends, 2)
+    del states, gends
+    d_re = mm(dyy, ss.transpose(-1, -2))
+    d_kf = mm(vv, gend.transpose(-1, -2))
+    da = torch.tril(dyy @ vv.transpose(-1, -2))
+    dv = mm(a.transpose(-1, -2), dyy) + mm(kf, gend)
+    dg = (gend * ss).sum(-1)[..., None, :]
+    del ss, gend
+    aa, bb = d_re * rr, d_kf * kk
+    rs, ls = [torch.zeros_like(g)], [torch.zeros_like(g)]
+    for t in range(sub - 1):
+        rs.append(aa[..., sub - 1 - t, :] + ww[..., sub - 1 - t, :] * rs[-1])
+        ls.append(bb[..., t, :] + ww[..., t, :] * ls[-1])
+    rsum, lsum = torch.stack(rs[::-1], -2), torch.stack(ls, -2)
+    dr_a, dk_a, dw_a = wkv6_diag_block_backward(rr, kk, ww, uf, da)
+    dr = d_re * ee + dr_a
+    dk = d_kf * ff + dk_a
+    dw = ee * (rsum + ff * dg) + ff * lsum + dw_a
+    du_bh = (torch.diagonal(da, dim1=-2, dim2=-1)[..., None]
+             * rr * kk).sum((2, 3))                   # (B, H, hs)
+    du = du_bh[0]
+    for i in range(1, b):
+        du = du + du_bh[i]
+
+    def back(x):  # (B, H, ns, sub, hs) → (B, T, H, hs) in r's dtype
+        return x.reshape(b, h, ns * sub, hs)[:, :, :n].transpose(
+            1, 2).to(r.dtype)
+
+    return back(dr), back(dk), back(dv), back(dw), du, gacc
 
 
 # ---------------------------------------------------------------------------

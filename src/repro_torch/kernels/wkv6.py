@@ -39,17 +39,30 @@ The wrappers add one to ``launch_counts["wkv6"]`` and to the route's own
 count (``wkv6_recurrent`` or ``wkv6_chunked``) where they launch a
 kernel, and nowhere else.
 
-Training.  ``wkv6_train`` is an autograd Function with a hand-written
-backward, ``csrc/wkv6_backward.cu`` (built with ``-fmad=false``; its
-plain version ``ref.wkv6_heads_backward_ref`` agrees bit for bit).  The
-JAX package has no kernel here: it differentiates its ``lax.scan`` by
-XLA.  The forward is the routed kernel above, writing a fresh final
-state; nothing is updated in place.  The backward adds one to
-``launch_counts["wkv6_backward"]`` where it launches (the kernel and the
-batch sum of du behind it, one call).  On CPU tensors the same Function
-runs ``ref.wkv6_heads_ref`` forward and ``ref.wkv6_heads_backward_ref``
-backward, so the CPU tests check the very gradient the kernel is held
-to.
+Training.  ``wkv6_train`` is an autograd Function with hand-written
+backwards; the JAX package has no kernel here: it differentiates its
+``lax.scan`` by XLA.  The forward is the routed kernel above, writing a
+fresh final state; nothing is updated in place.  The backward takes the
+forward's route:
+
+- ``"chunked"``: ``csrc/wkv6_backward_chunked.cu``, the gradient of the
+  chunked form in its blocking on the tensor cores (a state pass, then
+  sub-chunks of 16 steps from the last; no -fmad=false); its plain
+  version ``ref.wkv6_chunked_heads_backward_ref`` repeats its algebra and
+  operand splits, so the two differ only in the order of the sums;
+- ``"recurrent"``: ``csrc/wkv6_backward.cu``, step by step on the CUDA
+  cores (built with ``-fmad=false``; its plain version
+  ``ref.wkv6_heads_backward_ref`` agrees bit for bit).
+
+A failed build or launch raises; a chunked-route input never drops to
+the recurrent kernel.  The backward adds one to
+``launch_counts["wkv6_backward"]`` and to the route's own count
+(``wkv6_backward_recurrent`` or ``wkv6_backward_chunked``) where it
+launches (each kernel and the batch sum of du behind it, one call).  On
+CPU tensors the same Function runs ``ref.wkv6_heads_ref`` forward and
+``ref.wkv6_heads_backward_ref`` backward whatever the route, so the CPU
+tests check the recurrent kernel's very gradient, and the chunked one is
+held to its plain version by the card checks and tests.
 """
 
 from __future__ import annotations
@@ -74,7 +87,8 @@ CHUNKED_MIN_T = 128      # below it (decode steps; the recurrent kernel's
 BACKWARD_MAX_HEAD_SIZE = 64
 
 launch_counts = {"wkv6": 0, "wkv6_recurrent": 0, "wkv6_chunked": 0,
-                 "wkv6_backward": 0}
+                 "wkv6_backward": 0, "wkv6_backward_recurrent": 0,
+                 "wkv6_backward_chunked": 0}
 
 
 def reset_launch_counts() -> None:
@@ -116,6 +130,14 @@ def _bind_backward(lib) -> None:
     lib.wkv6_backward_scratch_steps.restype = i
 
 
+def _bind_backward_chunked(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.wkv6_backward_chunked_launch.argtypes = [p] * 16 + [i] * 4 + [p]
+    lib.wkv6_backward_chunked_launch.restype = i
+    lib.wkv6_backward_chunked_scratch_steps.argtypes = []
+    lib.wkv6_backward_chunked_scratch_steps.restype = i
+
+
 LIBRARY = CudaLibrary("wkv6", SOURCE, NVCC_FLAGS, _bind, "wkv6_error_string")
 LIBRARY_CHUNKED = CudaLibrary("wkv6_chunked", CSRC / "wkv6_chunked.cu",
                               BASE_FLAGS, _bind_chunked,
@@ -123,6 +145,9 @@ LIBRARY_CHUNKED = CudaLibrary("wkv6_chunked", CSRC / "wkv6_chunked.cu",
 LIBRARY_BACKWARD = CudaLibrary("wkv6_backward", CSRC / "wkv6_backward.cu",
                                NVCC_FLAGS, _bind_backward,
                                "wkv6_backward_error_string")
+LIBRARY_BACKWARD_CHUNKED = CudaLibrary(
+    "wkv6_backward_chunked", CSRC / "wkv6_backward_chunked.cu", BASE_FLAGS,
+    _bind_backward_chunked, "wkv6_backward_chunked_error_string")
 
 
 def _check_shapes(r, k, v, w, u, s0):
@@ -274,6 +299,47 @@ def _launch_backward(r, k, v, w, u, s0, dy, ds_last):
                                       DTYPE_CODES[r.dtype], stream)
     LIBRARY_BACKWARD.check(rc, "wkv6_backward")
     launch_counts["wkv6_backward"] += 1
+    launch_counts["wkv6_backward_recurrent"] += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+def _launch_backward_chunked(r, k, v, w, u, s0, dy, ds_last):
+    """The chunked backward kernel on CUDA tensors (bf16 r, k, v, w, dy at
+    head size 64): (dr, dk, dv, dw) bf16, du (H, hs) f32, ds0 (B, H, hs,
+    hs) f32.  Its scratch: the state at every sub-chunk's start, ceil(T /
+    16)·hs² f32 a (b, h), and du's (B, H, hs) partials."""
+    b, t, h, hs = r.shape
+    if any(x.dtype != torch.bfloat16 for x in (r, k, v, w, dy)) or \
+            hs != CHUNKED_HEAD_SIZE or t < 1:
+        raise ValueError(
+            f"the chunked backward kernel takes bf16 r, k, v, w and dy at "
+            f"head size {CHUNKED_HEAD_SIZE} and T >= 1; got {r.dtype}, "
+            f"{k.dtype}, {v.dtype}, {w.dtype}, {dy.dtype}, hs {hs}, T {t}")
+    r, k, v, w, dy = (x.contiguous() for x in (r, k, v, w, dy))
+    expect(dy, "dy", r.dtype, r.shape)
+    for name, x in (("r", r), ("k", k), ("v", v), ("w", w), ("dy", dy)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"the chunked backward kernel reads 16-byte "
+                             f"rows: {name} must start 16-byte aligned")
+    for name, x in (("s0", s0), ("ds_last", ds_last)):
+        expect(x, name, torch.float32, (b, h, hs, hs))
+    expect(u, "u", torch.float32, (h, hs))
+    lib = LIBRARY_BACKWARD_CHUNKED.load()
+    steps = lib.wkv6_backward_chunked_scratch_steps()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty((h, hs), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((b, h, hs), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty_like(s0)
+    ckpt = torch.empty(b * h * -(-t // steps) * hs * hs,
+                       dtype=torch.float32, device=r.device)
+    ptrs = [x.data_ptr() for x in (r, k, v, w, dy, u, s0, ds_last, dr, dk,
+                                   dv, dw, du, du_part, ds0, ckpt)]
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.wkv6_backward_chunked_launch(*ptrs, b, t, h, hs, stream)
+    LIBRARY_BACKWARD_CHUNKED.check(rc, "wkv6_backward_chunked")
+    launch_counts["wkv6_backward"] += 1
+    launch_counts["wkv6_backward_chunked"] += 1
     return dr, dk, dv, dw, du, ds0
 
 
@@ -296,7 +362,12 @@ class _Train(torch.autograd.Function):
         r, k, v, w, u, s0 = ctx.saved_tensors
         dy = torch.zeros_like(r) if dy is None else dy
         ds_last = torch.zeros_like(s0) if ds_last is None else ds_last
-        fn = ref.wkv6_heads_backward_ref if ctx.plain else _launch_backward
+        if ctx.plain:
+            fn = ref.wkv6_heads_backward_ref
+        elif route(r.dtype, r.shape[1], r.shape[3]) == "chunked":
+            fn = _launch_backward_chunked
+        else:
+            fn = _launch_backward
         return (*fn(r, k, v, w, u, s0, dy, ds_last), None)
 
 
@@ -307,8 +378,8 @@ def wkv6_train(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nothing in place.  r, k, v, w (B, T, H, hs), one dtype (bf16 or f32
     on the card); u (H, hs) f32; s0 (B, H, hs, hs) f32, contiguous.  On
     the card the forward launches the routed kernel (``route``; the
-    chunked one's alignment rules hold) and the backward the backward
-    kernel (head size at most 64)."""
+    chunked one's alignment rules hold) and the backward that route's
+    backward kernel (the recurrent one: head size at most 64)."""
     _check_shapes(r, k, v, w, u, s0)
     for name, x in (("u", u), ("s0", s0)):
         if x.dtype != torch.float32:

@@ -254,7 +254,9 @@ def test_cpu_tensors_never_launch_and_run_the_recurrence(rng):
                                      w[:, :, 0], u[0], s0[:, 0])
     assert torch.equal(y1, want_y1) and torch.equal(s1, want_s1)
     assert twkv.launch_counts == {"wkv6": 0, "wkv6_recurrent": 0,
-                                  "wkv6_chunked": 0, "wkv6_backward": 0}
+                                  "wkv6_chunked": 0, "wkv6_backward": 0,
+                                  "wkv6_backward_recurrent": 0,
+                                  "wkv6_backward_chunked": 0}
 
 
 # -- on the card -------------------------------------------------------------
