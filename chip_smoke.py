@@ -8,9 +8,9 @@ and depth), vision serving (llama-3.2-vision-11b at full width and
 depth), audio serving (whisper-tiny at full width and depth) and
 training (granite-3-2b and rwkv6-1.6b at full width and depth,
 recurrentgemma-9b at full width), every hand-written kernel against its
-plain version.
+plain version, and the pod dry run's counters against the card.
 
-    python3 chip_smoke.py            # everything (about 14 minutes)
+    python3 chip_smoke.py            # everything (about 15 minutes)
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
@@ -341,7 +341,16 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      scan forward and backward, flash forward, the plain attention's
      backward, the optimizer and the rest; the four kernels' times at
      the main paths' shapes;
- 20. a JSON line with every kernel; the last line is
+ 20. ``dryrun_vs_card``: the pod dry run's counters
+     (``launch/dryrun.trace``) around granite-3-2b's training step at
+     the main path's shape (8 x 1024, full width and depth, AdamW, remat
+     on), once on meta tensors laid out on ``make_host_mesh()``'s (1, 1)
+     mesh over a fake world, once for real on the card; the flops (the
+     card's flash launches counted as the plain attention the meta run
+     counts in their place) within 1 %, no collective on (1, 1), the
+     estimated peak within 0.75-1.25x ``torch.cuda.max_memory_allocated``
+     above what was allocated before the step's arguments;
+ 21. a JSON line with every kernel; the last line is
      ``{"ok": true, "device": {...}}``.
 
 Each earlier JSON line carries the card's name and power limit and the
@@ -1751,10 +1760,11 @@ def launch_blocks(calls, attempts=3):
     """Each call's kernel launch as torch.profiler's trace records it:
     (its name, block threads, registers a thread), in call order.  Two
     rounds run under the profiler, which may miss launches right after it
-    starts; the last round is read.  A trace that holds fewer launches
-    than one round (the profiler on the card now and then drops most of
-    its device events) is taken again, ``attempts`` times in all, as in
-    ``device_events``."""
+    starts; the last round is read.  A trace that does not hold both
+    rounds whole (the profiler on the card now and then drops device
+    events, and a drop inside the last round would shift which launch is
+    read as which call) is taken again, ``attempts`` times in all, as in
+    ``device_events``; the last one is read if it holds a round."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1777,7 +1787,8 @@ def launch_blocks(calls, attempts=3):
                        and "_compact_kernel<" in e.get("name", "")),
                       key=lambda e: e["ts"])
         recorded.append(len(kern))
-        if len(kern) >= len(calls):
+        if len(kern) == 2 * len(calls) or (
+                len(recorded) == attempts and len(kern) >= len(calls)):
             return [(e["name"], int(e["args"]["block"][0]),
                      e["args"].get("registers per thread"))
                     for e in kern[-len(calls):]]
@@ -3280,32 +3291,16 @@ WKV_REL_L2 = {"bfloat16": 1e-2, "float32": 1e-5}
 RWKV_LOGIT_REL_TOL = {"bfloat16": 1e-1, "float32": 1e-4}
 
 
-def wkv6_ops(b, t, h, hs, path):
-    """The operations one call needs in the form ``path`` computes.
-
-    recurrent: per step and head 5·hs² + 5·hs: r·S (2·hs²) and S ← w·S +
-    kᵀv (3·hs²), and the u term folded into one dot product, y_j += v_j ·
-    Σ_i r_i u_i k_i (3·hs, then 2·hs).  chunked: per sub-chunk of 16
-    steps and head, (r E) S and (k F)ᵀ V (2·16·hs² each), A V over A's
-    lower triangle (16·17·hs) and A's 136 entries (2·hs each), without
-    the kernel's split products (the function needs one)."""
-    if path == "recurrent":
-        return (5 * hs * hs + 5 * hs) * b * h * t
-    sub = 16
-    per_sub = 4 * sub * hs * hs + sub * (sub + 1) * hs \
-        + sub * (sub + 1) // 2 * 2 * hs
-    return per_sub * b * h * -(-t // sub)
-
-
 def wkv6_bound(b, t, h, hs, elem, path):
     """Least time for one call: r, k, v, w read, y written, u read and the
-    f32 state read and written once at 3.35 TB/s, or the operations
-    (``wkv6_ops``) at the peak of the units that route's kernel computes
-    on, whichever is larger: the f32 CUDA cores for the recurrent kernel,
-    the bf16 tensor cores for the chunked one."""
+    f32 state read and written once at 3.35 TB/s (``kernels/cost.
+    wkv6_bytes``), or the operations (``wkv6_ops``) at the peak of the
+    units that route's kernel computes on, whichever is larger: the f32
+    CUDA cores for the recurrent kernel, the bf16 tensor cores for the
+    chunked one."""
+    from repro_torch.kernels.cost import wkv6_bytes, wkv6_ops
     n_ops = wkv6_ops(b, t, h, hs, path)
-    n_bytes = 5 * b * t * h * hs * elem + 2 * b * h * hs * hs * 4 \
-        + h * hs * 4
+    n_bytes = wkv6_bytes(b, t, h, hs, elem)
     peak = F32_PEAK_FLOPS if path == "recurrent" else BF16_PEAK_FLOPS
     t_ops, t_bytes = n_ops / peak, n_bytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -5601,18 +5596,6 @@ def train_scan_kernels(gen):
     return errs
 
 
-def wkv6_backward_chunked_ops(b, t, h, hs) -> int:
-    """The operations the chunked backward needs, per sub-chunk of 16
-    steps and head: five products of 16 x hs x hs ((r E)ᵀ dY, d(rE),
-    d(kF), (k F) Gend, and (k F)ᵀ V for the states), dA and Aᵀ dY over A's
-    136 entries (2·hs each) and A itself, and the diagonal block's
-    gradient (6 operations for each of its 120 pairs and channel), without
-    the kernel's split products (the function needs one)."""
-    sub = 16
-    per_sub = 5 * 2 * sub * hs * hs + 3 * 136 * 2 * hs + 6 * 120 * hs
-    return per_sub * b * h * -(-t // sub)
-
-
 def time_scan_kernels(gen, errs, launches):
     """The four kernels at their main path's shapes: both WKV6 backward
     kernels at rwkv6's training batch (B 8, T 1024, H 32, hs 64, bf16),
@@ -5627,6 +5610,7 @@ def time_scan_kernels(gen, errs, launches):
     time.  No PyTorch call computes either scan: no library time.
     Returns the kernels line's rows; their launches are the main paths'
     (the recurrent WKV6 backward's: ``wkv6_backward_recurrent``)."""
+    from repro_torch.kernels.cost import wkv6_backward_ops
     import torch
     from repro_torch.kernels import ref as tref
     from repro_torch.kernels import rg_lru as trg
@@ -5682,7 +5666,7 @@ def time_scan_kernels(gen, errs, launches):
     row("wkv6_backward_chunked",
         lambda: twkv._launch_backward_chunked(*wargs),
         lambda: tref.wkv6_chunked_heads_backward_ref(*wargs), wkv_bytes,
-        wkv6_backward_chunked_ops(b, t, h, hs), "wkv6_", chunked_close,
+        wkv6_backward_ops(b, t, h, hs, "chunked"), "wkv6_", chunked_close,
         BF16_PEAK_FLOPS)
     emit(phase="time_split", kernel="wkv6_backward_chunked", device_ms={
         name: kernel_device_ms(
@@ -5925,6 +5909,95 @@ def scan_train_phases():
     emit(phase="scan_train_phases", seconds=time.perf_counter() - phase_t0,
          device_gb=torch.cuda.memory_allocated() / 1e9)
     return rows
+
+
+# -- the pod dry run against the card -----------------------------------------
+
+DRYRUN_FLOPS_TOL = 0.01          # relative
+DRYRUN_PEAK_RANGE = (0.75, 1.25)  # estimated / measured
+
+
+def plain_attention_flops(b, h, s, skv, d) -> int:
+    """What the plain attention's two products (QK^T and PV) cost at one
+    flash launch's shape, as ``torch.utils.flop_counter`` counts them."""
+    return 2 * (2 * b * h * s * skv * d)
+
+
+def dryrun_vs_card():
+    """Phase ``dryrun_vs_card``: the dry run's counters around granite's
+    training step (TRAIN_BATCH x TRAIN_SEQ, full width and depth, AdamW)
+    on meta tensors over ``make_host_mesh()``'s (1, 1) mesh, then for
+    real on the card.  The card's flash launches (ctypes, which no
+    dispatch mode sees) are counted as the plain attention at their
+    shape, which is what the meta run counts in their place."""
+    import gc
+    import torch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import specs as S
+    from repro_torch.train import step as tstep
+    from repro_torch.train.optimizer import make_optimizer, warmup_cosine
+    t0 = time.perf_counter()
+    cfg = train_cfg()
+    opt = make_optimizer(cfg.optimizer,
+                         warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    mesh = M.make_host_mesh()
+    try:
+        params, axes = S.abstract_params(cfg, mesh)
+        state = S.abstract_opt_state(opt, params, axes, mesh)
+        batch = S.batch_specs(cfg, mesh, TRAIN_BATCH, TRAIN_SEQ, train=True)
+        meta = D.trace(tstep.make_train_step(cfg, opt, device="meta"),
+                       (params, state, batch), mesh)
+        del params, state, batch
+    finally:
+        M.stop_world()
+    meta_s = time.perf_counter() - t0
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    masters = tstep.init_masters(cfg, seed=0, device=DEVICE)
+    state = opt.init(masters)
+    step = tstep.make_train_step(cfg, opt, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts()
+    t1 = time.perf_counter()
+    card = D.trace(step, (masters, state, train_batch(cfg)))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    launches = train_counts()["flash_attention"]
+    measured = torch.cuda.max_memory_allocated() - base
+    kernel_flops = launches * plain_attention_flops(
+        TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, TRAIN_SEQ, cfg.head_dim)
+    card_flops = card["cost"]["flops"] + kernel_flops
+    flops_rel = abs(meta["cost"]["flops"] - card_flops) / card_flops
+    ratio = meta["mem"]["peak_est_bytes"] / measured
+    rec = dict(
+        card=CARD.get("name"), power_limit=CARD.get("power_limit"),
+        arch=cfg.name, layers=cfg.num_layers, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, mesh="1x1",
+        meta_flops=meta["cost"]["flops"],
+        meta_flops_counter_mode=meta["flops_counter_mode"],
+        card_flops=card_flops, card_aten_flops=card["cost"]["flops"],
+        card_flash_launches=launches, card_flash_plain_flops=kernel_flops,
+        flops_rel_diff=flops_rel,
+        meta_collectives=meta["collectives"]["count"],
+        card_collectives=card["collectives"]["count"],
+        meta_peak_est_gb=meta["mem"]["peak_est_bytes"] / 1e9,
+        meta_argument_gb=meta["mem"]["argument_bytes"] / 1e9,
+        card_max_allocated_gb=measured / 1e9,
+        card_tracked_peak_gb=card["mem"]["peak_est_bytes"] / 1e9,
+        peak_ratio=ratio, meta_trace_s=meta_s, card_step_s=card_s,
+        seconds=time.perf_counter() - t0)
+    emit(phase="dryrun_vs_card", **rec)
+    del masters, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    lo, hi = DRYRUN_PEAK_RANGE
+    if flops_rel > DRYRUN_FLOPS_TOL or meta["collectives"]["count"] or \
+            not lo <= ratio <= hi:
+        raise AssertionError(f"dryrun_vs_card: {rec}")
 
 
 def ptxas_kernels(log, name_of) -> dict:
@@ -6230,8 +6303,10 @@ def main() -> int:
     kernels += train_phases()
     # 19. training rwkv6-1.6b and recurrentgemma-9b
     kernels += scan_train_phases()
+    # 20. the pod dry run's counters against the card
+    dryrun_vs_card()
 
-    # 20. the card, the kernels line, and the result
+    # 21. the card, the kernels line, and the result
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

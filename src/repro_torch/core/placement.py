@@ -42,14 +42,17 @@ The mesh's padded rows (the plan's rows rounded up to a multiple of the
 as a column, so a slot keeps only its shard's rows of the plan; the
 last shards hold fewer rows, or none.
 
-``lower_distributed`` has no counterpart here: it lowers a ``jax.jit``
-for the JAX package's dry-run tooling (``launch/dryrun.py``), which is
-not ported (ROADMAP queue 1).
+``lower_distributed`` traces, and does not run, one sweep of the sharded
+engine as one rank's SPMD program (``make_fx`` on fake tensors over a
+``DeviceMesh`` of a fake world, functional collectives): the
+counterpart of the JAX package's ``jax.jit(...).lower`` for its dry-run
+tooling, whose graph text names the collectives.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -522,3 +525,57 @@ def distributed_sync_run_batched(
         halo_exchanges=straggler,  # bulk-synchronous: one per sweep
         host_syncs=rd.syncs, copy_bytes_per_exchange=st.copy_bytes)
     return x[: sb.q], stats
+
+
+def lower_distributed(p: Prepared, mesh, apply_kind: str = "relax",
+                      batch: Optional[int] = None):
+    """Trace (no execution) one sweep of the distributed engine as one
+    rank's program, for dry-run inspection; returns the traced
+    ``torch.fx.GraphModule`` (its ``code`` names every collective).
+
+    ``mesh``: a ("graph", "query") ``DeviceMesh``, or a ``GraphMesh``,
+    whose shape is laid over a fake world of as many ranks
+    (``launch/mesh.py``).  Each rank holds its graph shard's rows of the
+    plan (rows padded to a multiple of the "graph" extent, as the
+    reference pads them) and gathers the frontier with a tiled
+    all-gather on "graph".  ``batch=Q`` traces the 2-D batched sweep
+    instead: a (q_pad, r_pad, B) frontier split over ("query", "graph"),
+    q_pad = Q rounded up to the "query" extent; its halo exchange stays
+    on "graph"."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from ..launch.mesh import device_mesh
+    if isinstance(mesh, GraphMesh):
+        mesh = device_mesh(tuple(mesh.shape.values()), ("graph", "query"))
+    shape = dict(zip(mesh.mesh_dim_names, tuple(mesh.mesh.shape)))
+    d = shape["graph"]
+    d_q = shape.get("query", 1)
+    r_pad = ((p.r_pad + d - 1) // d) * d
+    rows = r_pad // d
+    ring = sr.get(p.semiring)
+    graph = (mesh, mesh.mesh_dim_names.index("graph"))
+    damping, tol, inv_n = _scalars(p, 0.85, 1e-6)
+
+    def sweep(vals_l, cols_l, nnz_l, valid_l, x_l):
+        with warnings.catch_warnings():   # a newer name in later torch
+            warnings.simplefilter("ignore", FutureWarning)
+            xg = funcol.all_gather_tensor(
+                x_l, gather_dim=1 if batch else 0, group=graph)
+        y = _spmv_ref(vals_l, cols_l, nnz_l, xg, semiring=p.semiring)
+        x_new, _ = _apply(apply_kind, ring, y, x_l, valid_l, damping,
+                          inv_n, tol)
+        return x_new
+
+    meta = dict(device="meta")
+    args = [torch.empty((rows, p.k_max, p.b, p.b), dtype=torch.float32,
+                        **meta),
+            torch.empty((rows, p.k_max), dtype=torch.int32, **meta),
+            torch.empty((rows,), dtype=torch.int32, **meta),
+            torch.empty((rows, p.b), dtype=torch.bool, **meta)]
+    if batch:
+        q_pad = ((int(batch) + d_q - 1) // d_q) * d_q
+        args.append(torch.empty((q_pad // d_q, rows, p.b),
+                                dtype=torch.float32, **meta))
+    else:
+        args.append(torch.empty((rows, p.b), dtype=torch.float32, **meta))
+    return make_fx(sweep, tracing_mode="fake")(*args)

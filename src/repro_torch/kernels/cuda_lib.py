@@ -9,8 +9,9 @@ beside the library as ``<library>.log``.  Nothing here runs when a module
 is imported, and nothing catches a failed build: it raises with nvcc's
 output.
 
-Also the checks every wrapper shares: the device rule (CPU tensors take
-the plain torch version, CUDA tensors the kernel) and argument checks.
+Also the checks every wrapper shares: the device rule (CPU and meta
+tensors take the plain torch version, CUDA tensors the kernel) and
+argument checks.
 """
 
 from __future__ import annotations
@@ -105,14 +106,16 @@ class CudaLibrary:
 
 
 def on_cpu(*ts) -> bool:
-    """True when every tensor lies on the CPU; False when every one lies
-    on one CUDA device; raises on anything else."""
+    """True when every tensor lies on the CPU, or every one on the
+    ``meta`` device (the dry run's abstract tensors: the plain version's
+    shapes and costs, nothing computed); False when every one lies on one
+    CUDA device; raises on anything else."""
     devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(
             f"tensors on different devices: {sorted(map(str, devs))}")
     dev = devs.pop()
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return True
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")

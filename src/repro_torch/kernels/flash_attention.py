@@ -158,7 +158,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
     if on_cpu(q, k, v):
-        return ref.attention_ref(q, k, v, causal, window, scale)
+        # on meta (the dry run) the stand-in skips masked key blocks, as
+        # the kernel skips masked tiles, so its work is counted as such
+        return ref.attention_ref(q, k, v, causal, window, scale,
+                                 1 if q.device.type == "meta"
+                                 else ref.CHUNKED_THRESHOLD)
     b, h, hkv, s, d, path = _check(q, k, v)
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     o = torch.empty((b, s, h, d), dtype=q.dtype,
@@ -184,7 +188,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class _KernelForwardPlainBackward(torch.autograd.Function):
     """Forward: the hand kernel.  Backward: autograd of the plain
-    attention, recomputed from the saved q, k, v."""
+    attention, recomputed from the saved q, k, v (past 1024 rows in
+    1024-row query chunks, each over the keys it may see)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
@@ -198,7 +203,9 @@ class _KernelForwardPlainBackward(torch.autograd.Function):
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(n)
                    for t, n in zip(ctx.saved_tensors, need)]
-            o = ref.attention_ref(*ins, *ctx.args)
+            # in query chunks past 1024 rows, each over the keys it may
+            # see: the same values, without the masked blocks' work
+            o = ref.attention_ref(*ins, *ctx.args, chunk_from=1)
             wrt = [t for t in ins if t.requires_grad]
             grads = iter(torch.autograd.grad(o, wrt, do))
         return (*(next(grads) if n else None for n in need), None, None,
@@ -211,7 +218,9 @@ def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``flash_attention`` with a gradient: on CUDA tensors the kernel's
     output, differentiated through the plain attention recomputed in the
     backward; on CPU tensors the plain attention, differentiated
-    directly."""
-    if on_cpu(q, k, v):
+    directly.  On meta tensors (the dry run) the CUDA path's structure
+    with the plain version in the kernel's place, so its count of work
+    and of live bytes is the card's."""
+    if on_cpu(q, k, v) and q.device.type != "meta":
         return ref.attention_ref(q, k, v, causal, window, scale)
     return _KernelForwardPlainBackward.apply(q, k, v, causal, window, scale)

@@ -151,12 +151,17 @@ def attention(q, k, v, causal=True, window=None, scale=None):
     GQA: the kernel reads kv head h // (H / Hkv) in place, and the plain
     path repeats the kv heads to H, as the JAX package's ``attention``
     does before its kernel; both compute the same function.
+
+    DTensors (a mesh's, ``launch/dryrun.py``) attend shard by shard
+    (``_attention_on_mesh``).
     """
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"kv heads {k.shape[1]} must divide heads "
                          f"{q.shape[1]}")
+    if type(q).__name__ == "DTensor":
+        return _attention_on_mesh(q, k, v, causal, window, scale)
     s, d = q.shape[2], q.shape[3]
     if s == k.shape[2] and s > 1 and v.shape[-1] == d:
         if torch.is_grad_enabled() and any(
@@ -167,10 +172,101 @@ def attention(q, k, v, causal=True, window=None, scale=None):
     return _ref.attention_ref(q, k, v, causal, window, scale)
 
 
+def _attention_on_mesh(q, k, v, causal, window, scale):
+    """``attention`` on DTensors: each shard attends over its own batch
+    rows and query heads (``local_map``), as laid out by q's placements
+    on the batch and head dims (any other split of q, k or v is
+    gathered).  The kv heads are split with the query heads where their
+    count divides; else each shard takes the whole kv heads and keeps
+    the ones its query heads read, and their gradients are partial sums
+    over the head shards.  No shard gathers another's heads, which a
+    (B, H) flatten of a batch- and head-split tensor would."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    q_pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 1)
+                 else Replicate() for p in q.placements)
+    head_dims = [i for i, p in enumerate(q_pl)
+                 if isinstance(p, Shard) and p.dim == 1]
+    n_h = 1
+    for i in head_dims:
+        n_h *= mesh.size(i)
+    h, hkv = q.shape[1], k.shape[1]
+    split_kv = hkv % n_h == 0
+    kv_pl = tuple(p if (isinstance(p, Shard) and p.dim == 0) or split_kv
+                  else Replicate() for p in q_pl)
+    kv_grad = tuple(Partial() if i in head_dims and not split_kv else p
+                    for i, p in enumerate(kv_pl))
+    h_local = h // n_h
+    group = h // hkv
+
+    def attend(ql, kl, vl):
+        if not split_kv:
+            m = 0
+            for i in head_dims:
+                m = m * mesh.size(i) + mesh.get_local_rank(i)
+            lo = m * h_local // group
+            hi = max(lo + 1, (m + 1) * h_local // group)
+            kl, vl = kl[:, lo:hi], vl[:, lo:hi]
+        return attention(ql, kl, vl, causal, window, scale)
+
+    return local_map(attend, out_placements=(q_pl,),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def per_shard(fn, args, dims, out_dims):
+    """``fn`` on each shard's local pieces of DTensor ``args`` whose work
+    splits along a batch and a channel dim (a scan: every (row, channel)
+    independent).  ``dims[i]`` = (batch dim, channel dim) of ``args[i]``,
+    None where it has none; ``out_dims`` likewise for each output.  The
+    splits of ``args[0]`` along its two dims are kept, every other split
+    is gathered, a plain tensor counts as replicated; an input without
+    one of those dims is taken whole and its gradient is a partial sum
+    over that split."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    lead = args[0]
+    mesh = lead.device_mesh
+    # a plain tensor among them (a state the model makes) is replicated
+    args = tuple(a if isinstance(a, DTensor) else DTensor.from_local(
+        a, mesh, (Replicate(),) * mesh.ndim, run_check=False) for a in args)
+    role = {i: dims[0].index(p.dim) for i, p in enumerate(lead.placements)
+            if isinstance(p, Shard) and p.dim in dims[0]
+            and p.dim is not None}
+
+    def lay(d, grad=False):
+        out = []
+        for i in range(mesh.ndim):
+            if i in role and d[role[i]] is not None:
+                out.append(Shard(d[role[i]]))
+            else:
+                out.append(Partial() if grad and i in role else Replicate())
+        return tuple(out)
+
+    return local_map(fn, out_placements=tuple(lay(d) for d in out_dims),
+                     in_placements=tuple(lay(d) for d in dims),
+                     in_grad_placements=tuple(lay(d, True) for d in dims),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+_WKV_DIMS = ((0, 2),) * 4 + ((None, 0), (0, 1))
+
+
 def wkv6(r, k, v, w, u, state):
     """The RWKV-6 recurrence: r, k, v, w (B, T, H, hs), u (H, hs), the
     f32 state (B, H, hs, hs) updated in place; returns y (B, T, H, hs) in
-    r's dtype (``wkv6.wkv6_heads``)."""
+    r's dtype (``wkv6.wkv6_heads``).  DTensors run shard by shard
+    (``per_shard``: batch rows and heads)."""
+    if type(r).__name__ == "DTensor":
+        def local(*a):
+            y = _wkv6.wkv6_heads(*a)
+            return y, a[-1]
+        y, s = per_shard(local, (r, k, v, w, u, state), _WKV_DIMS,
+                         ((0, 2), (0, 1)))
+        state.copy_(s)
+        return y
     return _wkv6.wkv6_heads(r, k, v, w, u, state)
 
 
@@ -178,6 +274,9 @@ def wkv6_train(r, k, v, w, u, s0):
     """The recurrence with gradients, for training: r, k, v, w (B, T, H,
     hs), u (H, hs) f32, s0 (B, H, hs, hs) f32; returns (y, the final
     state), nothing written in place (``wkv6.wkv6_train``)."""
+    if type(r).__name__ == "DTensor":
+        return per_shard(_wkv6.wkv6_train, (r, k, v, w, u, s0), _WKV_DIMS,
+                         ((0, 2), (0, 1)))
     return _wkv6.wkv6_train(r, k, v, w, u, s0)
 
 
@@ -185,4 +284,7 @@ def rg_lru_scan(a, g, h0):
     """The RG-LRU scan h_t = a_t·h_{t−1} + g_t with gradients: a, g (B, S,
     ld) f32, h0 (B, ld) f32; returns (h (B, S, ld), h_last)
     (``rg_lru.rg_lru_scan``)."""
+    if type(a).__name__ == "DTensor":
+        return per_shard(_rg_lru.rg_lru_scan, (a, g, h0),
+                         ((0, 2), (0, 2), (0, 1)), ((0, 2), (0, 1)))
     return _rg_lru.rg_lru_scan(a, g, h0)

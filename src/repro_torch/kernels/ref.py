@@ -245,9 +245,13 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: Optional[float] = None,
                 q_chunk: int = 1024) -> torch.Tensor:
     """Exact attention over query chunks, so the live score tensor is
-    (B, H, q_chunk, Skv) instead of (B, H, S, Skv).  Falls back to
-    ``mha_ref`` unless q_chunk divides S and S > q_chunk, as the JAX
-    package's version does."""
+    (B, H, q_chunk, Skv) at most instead of (B, H, S, Skv).  Falls back
+    to ``mha_ref`` unless q_chunk divides S and S > q_chunk, as the JAX
+    package's version does.  A chunk reads only the keys some row of it
+    may see (causal: none past its last row; a window: none before its
+    first row's span), where the JAX package's version scores every key
+    and masks them: the same softmax, at about half the work and score
+    bytes under a causal mask."""
     s, d, skv = q.shape[2], q.shape[3], k.shape[2]
     if s % q_chunk or s <= q_chunk:
         return mha_ref(q, k, v, causal, window, scale)
@@ -255,23 +259,30 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     outs = []
     for c0 in range(0, s, q_chunk):
         # row c0 + i of the query sits at key position c0 + i + (skv - s)
-        mask = _mask(q_chunk, skv, c0 + skv - s, causal, window, q.device)
-        outs.append(_attend(q[:, :, c0:c0 + q_chunk], k, v, mask, scale))
+        first = c0 + skv - s
+        hi = min(skv, first + q_chunk) if causal else skv
+        lo = max(0, first - window + 1) if window is not None else 0
+        lo = min(lo, hi)
+        mask = _mask(q_chunk, hi - lo, first - lo, causal, window, q.device)
+        outs.append(_attend(q[:, :, c0:c0 + q_chunk], k[:, :, lo:hi],
+                            v[:, :, lo:hi], mask, scale))
     return torch.cat(outs, dim=2)
 
 
 def attention_ref(q, k, v, causal: bool = True,
                   window: Optional[int] = None,
-                  scale: Optional[float] = None) -> torch.Tensor:
+                  scale: Optional[float] = None,
+                  chunk_from: int = CHUNKED_THRESHOLD) -> torch.Tensor:
     """The plain version of the attention kernel: repeat the kv heads to
-    H (GQA), then ``mha_ref``, or ``mha_chunked`` from S = 16384 on, as
-    the JAX package's ``ops`` does.  q (B, H, S, D); k, v (B, Hkv, Skv,
-    D)."""
+    H (GQA), then ``mha_ref``, or ``mha_chunked`` from S = ``chunk_from``
+    on (16384, as the JAX package's ``ops`` does; 1 where it stands in
+    for the kernel, which skips masked tiles, at any S over a chunk).
+    q (B, H, S, D); k, v (B, Hkv, Skv, D)."""
     h, hkv = q.shape[1], k.shape[1]
     if hkv != h:
         k = k.repeat_interleave(h // hkv, dim=1)
         v = v.repeat_interleave(h // hkv, dim=1)
-    if q.shape[2] >= CHUNKED_THRESHOLD:
+    if q.shape[2] >= chunk_from:
         return mha_chunked(q, k, v, causal, window, scale)
     return mha_ref(q, k, v, causal, window, scale)
 

@@ -32,6 +32,7 @@ import pathlib
 import torch
 
 from . import ref
+from . import cost
 from .cuda_lib import BASE_FLAGS, CudaLibrary, expect, on_cpu
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "rg_lru.cu"
@@ -104,7 +105,14 @@ class _Scan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, g, h0, plain):
-        h_all, h_last = (ref.rg_lru_scan_ref if plain else _launch)(a, g, h0)
+        if a.device.type == "meta":     # the dry run: the kernel's stand-in
+            b, s, ld = a.shape
+            cost.note("rg_lru", cost.rg_lru_ops(b, s, ld),
+                      cost.rg_lru_bytes(b, s, ld))
+            h_all, h_last = torch.empty_like(a), torch.empty_like(h0)
+        else:
+            h_all, h_last = (ref.rg_lru_scan_ref if plain else _launch)(
+                a, g, h0)
         ctx.plain = plain
         ctx.save_for_backward(a, h0, h_all)
         return h_all, h_last
@@ -114,6 +122,12 @@ class _Scan(torch.autograd.Function):
         a, h0, h_all = ctx.saved_tensors
         dh = torch.zeros_like(a) if dh is None else dh
         dh_last = torch.zeros_like(h0) if dh_last is None else dh_last
+        if a.device.type == "meta":
+            b, s, ld = a.shape
+            cost.note("rg_lru_backward", cost.rg_lru_ops(b, s, ld, True),
+                      cost.rg_lru_bytes(b, s, ld, True))
+            return (torch.empty_like(a), torch.empty_like(a),
+                    torch.empty_like(h0), None)
         fn = ref.rg_lru_scan_backward_ref if ctx.plain else _launch_backward
         return (*fn(a, h0, h_all, dh, dh_last), None)
 

@@ -73,6 +73,7 @@ import pathlib
 import torch
 
 from . import ref
+from . import cost
 from .cuda_lib import BASE_FLAGS, CudaLibrary, expect, on_cpu
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -236,11 +237,46 @@ def wkv6_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of 8, as the model's contiguous projections are; it raises otherwise.
     """
     _check_shapes(r, k, v, w, u, state)
+    if r.device.type == "meta":
+        return _on_meta(r)
     if on_cpu(r, k, v, w, u, state):
         y, s = ref.wkv6_heads_ref(r, k, v, w, u, state)
         state.copy_(s)
         return y
     return _launch(r, k, v, w, u, state, state)
+
+
+def _on_meta(r):
+    """The routed kernel's stand-in on meta tensors (the dry run): its
+    output and its work noted (``cost``); the state is written in place,
+    which on meta is nothing."""
+    b, t, h, hs = r.shape
+    path = route(r.dtype, t, hs)
+    cost.note("wkv6_" + path, cost.wkv6_ops(b, t, h, hs, path),
+              cost.wkv6_bytes(b, t, h, hs, r.element_size()))
+    return torch.empty_like(r)
+
+
+def _on_meta_backward(r, k, v, w, u, s0, dy, ds_last):
+    """The routed backward kernel's stand-in on meta: its gradients and
+    scratch (the chunked kernel's states at every sub-chunk and du's
+    partial sums) made, its work noted."""
+    b, t, h, hs = r.shape
+    path = route(r.dtype, t, hs)
+    grads = (torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
+             torch.empty_like(w), torch.empty((h, hs), dtype=torch.float32,
+                                              device=r.device),
+             torch.empty_like(s0))
+    if path == "chunked":     # live while the kernel runs, then freed
+        scratch = (torch.empty(b * h * -(-t // cost.CHUNK) * hs * hs,
+                               dtype=torch.float32, device=r.device),
+                   torch.empty((b, h, hs), dtype=torch.float32,
+                               device=r.device))
+        del scratch
+    cost.note("wkv6_backward_" + path,
+              cost.wkv6_backward_ops(b, t, h, hs, path),
+              cost.wkv6_backward_bytes(b, t, h, hs, r.element_size()))
+    return grads
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -352,6 +388,8 @@ class _Train(torch.autograd.Function):
     def forward(ctx, r, k, v, w, u, s0, plain):
         ctx.plain = plain
         ctx.save_for_backward(r, k, v, w, u, s0)
+        if r.device.type == "meta":
+            return _on_meta(r), torch.empty_like(s0)
         if plain:
             return ref.wkv6_heads_ref(r, k, v, w, u, s0)
         s = torch.empty_like(s0)
@@ -362,7 +400,9 @@ class _Train(torch.autograd.Function):
         r, k, v, w, u, s0 = ctx.saved_tensors
         dy = torch.zeros_like(r) if dy is None else dy
         ds_last = torch.zeros_like(s0) if ds_last is None else ds_last
-        if ctx.plain:
+        if r.device.type == "meta":
+            fn = _on_meta_backward
+        elif ctx.plain:
             fn = ref.wkv6_heads_backward_ref
         elif route(r.dtype, r.shape[1], r.shape[3]) == "chunked":
             fn = _launch_backward_chunked

@@ -34,63 +34,15 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
 from ..train import tree as T
-from .lm import LM, layer_slots
-
-# port module path under a block → key path in the JAX block tree
-_BLOCK_LEAVES = {
-    "ln1.scale": ("ln1", "scale"), "ln1.bias": ("ln1", "bias"),
-    "ln2.scale": ("ln2", "scale"), "ln2.bias": ("ln2", "bias"),
-    "attn.wq": ("attn", "wq"), "attn.wk": ("attn", "wk"),
-    "attn.wv": ("attn", "wv"), "attn.wo": ("attn", "wo"),
-    "mlp.wi": ("mlp", "wi"), "mlp.wg": ("mlp", "wg"),
-    "mlp.wo": ("mlp", "wo"),
-    **{f"attn.{n}": ("attn", n) for n in (
-        "wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wkv_b")},
-    "mlp.router": ("mlp", "router"),
-    **{f"mlp.{g}.{n}": ("mlp", g, n) for g in ("experts", "shared")
-       for n in ("wi", "wg", "wo")},
-    **{f"rwkv.{n}": ("rwkv", n) for n in (
-        "mu", "ddl_a", "ddl_b", "wr", "wk", "wv", "wg", "wo", "w0",
-        "dec_a", "dec_b", "u", "ln_x", "mu_c", "ck", "cr", "cv")},
-    **{f"rec.{n}": ("rec", n) for n in (
-        "w_x", "w_y", "conv_w", "conv_b", "wr", "wi", "lam", "w_out")},
-    **{f"xattn.{n}": ("xattn", n) for n in ("wq", "wk", "wv", "wo")},
-    "ln_x.scale": ("ln_x", "scale"), "ln_x.bias": ("ln_x", "bias"),
-    "gate": ("gate",), "gate_mlp": ("gate_mlp",),
-}
-_TOP_LEAVES = {"embed": ("embed",), "head": ("head",),
-               "ln_f.scale": ("ln_f", "scale"),
-               "ln_f.bias": ("ln_f", "bias"),
-               "pos_emb": ("pos_emb",), "img_proj": ("img_proj",),
-               "encoder.ln_f.scale": ("encoder", "ln_f", "scale"),
-               "encoder.ln_f.bias": ("encoder", "ln_f", "bias"),
-               "encoder.pos_emb": ("encoder", "pos_emb")}
-
-
-def _leaf_paths(cfg: ModelConfig, model: LM):
-    """(port parameter, JAX key path, stack index or None) for every
-    parameter of the model."""
-    params = dict(model.named_parameters())
-    for name, path in _TOP_LEAVES.items():
-        if name in params:
-            yield params[name], path, None
-    slots = [(f"blocks.{i}", (group, key), r)
-             for i, (group, key, r) in enumerate(layer_slots(cfg))]
-    slots += [(f"encoder.blocks.{i}", ("encoder", "blocks"), i)
-              for i in range(cfg.encoder_layers if cfg.encdec else 0)]
-    for prefix, where, r in slots:
-        for name, path in _BLOCK_LEAVES.items():
-            full = f"{prefix}.{name}"
-            if full in params:
-                yield params[full], where + path, r
-
+from . import lm
+from .lm import LM, param_paths
 
 @torch.no_grad()
 def params_from_jax(cfg: ModelConfig, tree: Dict, device=None) -> LM:
     """The port's model holding the weights of the JAX package's
     ``lm.init(cfg, key)[0]`` tree, given as numpy arrays."""
     model = LM(cfg, resolve_device(device))
-    for param, path, r in _leaf_paths(cfg, model):
+    for param, path, r in param_paths(cfg, model):
         leaf = tree
         for k in path:
             leaf = leaf[k]
@@ -109,7 +61,7 @@ def masters_from_model(cfg: ModelConfig, model: LM) -> Dict:
     axis."""
     tree: Dict = {}
     stacks: Dict = {}
-    for param, path, r in _leaf_paths(cfg, model):
+    for param, path, r in param_paths(cfg, model):
         if r is None:
             T.put(tree, path, param.float().clone())
         else:
@@ -129,17 +81,22 @@ def params_to_jax(cfg: ModelConfig, model: LM) -> Dict:
                       masters_from_model(cfg, model))
 
 
+def tree_shapes(cfg: ModelConfig) -> Dict:
+    """{key path: shape} of every leaf of the JAX package's parameter tree
+    of ``cfg`` (nothing allocated)."""
+    want = {}
+    for param, path, r in param_paths(cfg, LM(cfg, device="meta")):
+        shape = tuple(param.shape)
+        if r is not None:
+            shape = (lm.stack_depth(cfg, path),) + shape
+        want[path] = shape
+    return want
+
+
 def check_tree(cfg: ModelConfig, tree: Dict) -> None:
     """Raise ``ValueError`` unless ``tree`` has exactly the leaves, and the
     shapes, of the JAX package's parameter tree of ``cfg``."""
-    want = {}
-    for param, path, r in _leaf_paths(cfg, LM(cfg, device="meta")):
-        shape = tuple(param.shape)
-        if r is not None:
-            n = cfg.encoder_layers if path[0] == "encoder" \
-                else cfg.pattern_repeats
-            shape = (n,) + shape
-        want[path] = shape
+    want = tree_shapes(cfg)
     have = {path: tuple(leaf.shape) for path, leaf in T.items(tree)}
     if have != want:
         diff = sorted(set(have.items()) ^ set(want.items()))

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..kernels import ops
+from ..kernels import cost, ops
 from . import layers
 
 _C = 8.0
@@ -95,14 +95,31 @@ def _rg_lru(p: Recurrent, x, h0, train: bool = False):
     if train:
         h_all, h = ops.rg_lru_scan(a, gated, h0.float())
         return h_all.to(cd), h
+    if type(a).__name__ == "DTensor":   # a mesh's: the loop shard by shard
+        ys, h = ops.per_shard(_step_loop, (a, gated, h0.float()),
+                              ((0, 2), (0, 2), (0, 1)), ((0, 2), (0, 1)))
+    else:
+        ys, h = _step_loop(a, gated, h0.float())
+    return ys.to(cd), h
+
+
+def _step_loop(a, gated, h):
+    """h_t = a_t·h_{t−1} + g_t, one ``addcmul`` a step; returns (every
+    step's h (B, S, ld), h_last).  On meta (the dry run) the loop's
+    outputs are made and its work noted (``kernels/cost.py``), not traced
+    step by step."""
+    if a.device.type == "meta":
+        b, s, ld = a.shape
+        cost.note("rg_lru_loop", cost.rg_lru_ops(b, s, ld),
+                  cost.rg_lru_bytes(b, s, ld))
+        return torch.empty_like(a), torch.empty_like(h)
     # time-major, so each step reads and writes contiguous (B, ld) rows
     a_t = a.transpose(0, 1).contiguous()
     g_t = gated.transpose(0, 1).contiguous()
     ys = torch.empty_like(a_t)
-    h = h0.float()
     for t in range(a_t.shape[0]):
         h = torch.addcmul(g_t[t], a_t[t], h, out=ys[t])  # a_t·h + g_t
-    return ys.transpose(0, 1).to(cd), h
+    return ys.transpose(0, 1), h
 
 
 def _causal_conv(p: Recurrent, x, taps):

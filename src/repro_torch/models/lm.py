@@ -40,6 +40,8 @@ package's tree, leaves stacked on a leading layer axis, so
 
 Entry points:
   init(cfg, generator, device)                   → LM (random weights)
+  param_axes(cfg)                                → the JAX parameter
+                                                   tree's logical axes
   forward(cfg, model, tokens, extras)            → logits (B, S, V)
   forward_train(cfg, model, batch)               → logits, aux loss
   loss_fn(cfg, model, batch)                     → loss, metrics
@@ -52,6 +54,7 @@ Entry points:
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -60,6 +63,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
+from ..sharding.rules import _current_mesh, constrain, distribute, \
+    shapes_only, spec_for
+from ..train import tree
 from . import cache as cache_lib
 from . import griffin, layers, moe, rwkv
 
@@ -275,6 +281,82 @@ def _fill_recurrent(cfg: ModelConfig, p: griffin.Recurrent, gen) -> None:
         _fill(w, ld, gen)
 
 
+# logical axes of each parameter leaf, by (parent, leaf) name and else by
+# leaf name: the JAX package's ``*_init`` axes strings
+_LEAF_AXES = {
+    "embed": "vocab embed", "head": "embed vocab", "pos_emb": ". embed",
+    "img_proj": "embed embed2", "scale": "norm", "bias": "norm",
+    "gate": "", "gate_mlp": "",
+    **{(a, "wq"): "embed heads head_dim" for a in ("attn", "xattn")},
+    **{(a, w): "embed_kv kv_heads head_dim" for a in ("attn", "xattn")
+       for w in ("wk", "wv")},
+    **{(a, "wo"): "heads head_dim embed" for a in ("attn", "xattn")},
+    ("attn", "wq_a"): "embed lora", ("attn", "q_norm"): "norm",
+    ("attn", "wq_b"): "lora heads qk_dim", ("attn", "wkv_a"): "embed lora",
+    ("attn", "kv_norm"): "norm", ("attn", "wkv_b"): "lora heads qk_dim",
+    **{(m, w): "embed mlp" for m in ("mlp", "shared") for w in ("wi", "wg")},
+    **{(m, "wo"): "mlp embed" for m in ("mlp", "shared")},
+    ("mlp", "router"): "embed expert",
+    ("experts", "wi"): "expert embed mlp",
+    ("experts", "wg"): "expert embed mlp",
+    ("experts", "wo"): "expert mlp embed",
+    **{("rwkv", n): ax for n, ax in (
+        ("mu", ". embed"), ("ddl_a", "embed lora"), ("ddl_b", ". lora embed"),
+        ("wr", "embed mlp"), ("wk", "embed mlp"), ("wv", "embed mlp"),
+        ("wg", "embed mlp"), ("wo", "mlp embed"), ("w0", "norm"),
+        ("dec_a", "embed lora"), ("dec_b", "lora embed"),
+        ("u", "heads head_dim"), ("ln_x", "norm"), ("mu_c", ". embed"),
+        ("ck", "embed mlp"), ("cr", "embed mlp"), ("cv", "mlp embed"))},
+    **{("rec", n): ax for n, ax in (
+        ("w_x", "embed mlp"), ("w_y", "embed mlp"), ("conv_w", "conv mlp"),
+        ("conv_b", "norm"), ("wr", "mlp mlp2"), ("wi", "mlp mlp2"),
+        ("lam", "norm"), ("w_out", "mlp embed"))},
+}
+
+
+def param_paths(cfg: ModelConfig, model: LM):
+    """(port parameter, key path in the JAX package's parameter tree,
+    stack index or None) of every parameter of ``model``: a block's leaf
+    at index r of ``p["blocks"]["b{j}"]``, a remainder layer's under
+    ``p["rem"]["r{j}"]``, an encoder block's at index i of
+    ``p["encoder"]["blocks"]``."""
+    slots = layer_slots(cfg)
+    for name, param in model.named_parameters():
+        parts = tuple(name.split("."))
+        if parts[0] == "blocks":
+            group, key, r = slots[int(parts[1])]
+            yield param, (group, key) + parts[2:], r
+        elif parts[:2] == ("encoder", "blocks"):
+            yield param, ("encoder", "blocks") + parts[3:], int(parts[2])
+        else:
+            yield param, parts, None
+
+
+def stack_depth(cfg: ModelConfig, path) -> int:
+    """Entries on the leading stack axis of a stacked leaf at ``path``:
+    the encoder's layers or the superblock repeats."""
+    return cfg.encoder_layers if path[0] == "encoder" \
+        else cfg.pattern_repeats
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of every leaf of the JAX package's parameter
+    tree, as its ``lm.init(cfg, key)[1]`` gives them: space-separated
+    strings, a stacked leaf's led by "stack"."""
+    axes: Dict = {}
+    for _, path, r in param_paths(cfg, LM(cfg, device="meta")):
+        ax = _LEAF_AXES.get(path[-2:], _LEAF_AXES.get(path[-1]))
+        if ax is None:
+            raise KeyError(f"no logical axes for {'/'.join(path)}")
+        if r is not None:
+            ax = ("stack " + ax).strip()
+        node = axes
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = ax
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -464,7 +546,7 @@ def _embed(cfg: ModelConfig, model: LM, tokens, positions=None):
             x = x + model.pos_emb[None, :x.shape[1]]
         else:
             x = x + model.pos_emb[positions]
-    return x
+    return constrain(x, "batch . .")
 
 
 def _logits(cfg: ModelConfig, model: LM, x):
@@ -660,7 +742,9 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     leading layer axis.  ``dtype`` is the KV caches' (the cross caches'
     too); each leaf keeps the dtype and the value ``block_cache_init``
     gives it, so the recurrent states stay f32 and an empty ring's
-    ``pos_of_slot`` is -1."""
+    ``pos_of_slot`` is -1.  With a mesh in force
+    (``sharding.rules.use_mesh``) every leaf is a DTensor laid out by
+    ``cache_axes``."""
     device = resolve_device(device)
 
     def stacked(kind, stack):
@@ -669,12 +753,23 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
         return _tree_map(lambda t: t.expand(stack + t.shape).clone()
                          if stack else t, one)
 
-    c = {"blocks": {f"b{j}": stacked(kind, (cfg.pattern_repeats,))
-                    for j, kind in enumerate(cfg.block_pattern)}}
-    if cfg.remainder_layers:
-        c["rem"] = {f"r{j}": stacked(kind, ())
-                    for j, kind in enumerate(cfg.remainder_layers)}
-    return c
+    def build():
+        c = {"blocks": {f"b{j}": stacked(kind, (cfg.pattern_repeats,))
+                        for j, kind in enumerate(cfg.block_pattern)}}
+        if cfg.remainder_layers:
+            c["rem"] = {f"r{j}": stacked(kind, ())
+                        for j, kind in enumerate(cfg.remainder_layers)}
+        return c
+
+    mesh = _current_mesh()
+    if mesh is None:
+        return build()
+    # laid out by cache_axes on the mesh in force; on meta only the
+    # shards are made
+    with shapes_only() if device.type == "meta" else nullcontext():
+        c = build()
+    return tree.tree_map(lambda t, ax: distribute(
+        t, spec_for(tuple(t.shape), ax, mesh), mesh), c, cache_axes(cfg))
 
 
 def cache_axes(cfg: ModelConfig) -> Dict:

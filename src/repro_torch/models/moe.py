@@ -163,7 +163,7 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
     dest = torch.where(r.keep, (r.topi * ng + group) * cap + r.pos, sink)
     dest = dest.reshape(-1)
     src = xt[:, :, None, :].expand(ng, gs, k, d).reshape(-1, d)
-    buf = torch.zeros((sink + 1, d), dtype=cd, device=x.device)
+    buf = src.new_zeros((sink + 1, d), dtype=cd)   # a DTensor on a mesh
     buf.index_copy_(0, dest, src)
     xout = _expert_ffn(cfg, p.experts, buf[:-1].view(e, ng * cap, d))
 

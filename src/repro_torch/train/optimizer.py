@@ -23,7 +23,8 @@ added in order, which can round otherwise than one reduction).
 
 States mirror the parameter tree (``train/tree.py``): AdamW's {"m", "v",
 "count"}, Adafactor's {"stats": {…: {"vr", "vc"} or {"v"}}, "count"},
-``count`` a 0-d int32 tensor.
+``count`` a 0-d int32 tensor.  ``state_axes`` names a state's logical
+axes from the parameters' (``lm.param_axes``), as the reference's does.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import Callable
 
 import torch
 
+from ..sharding.rules import parse_axes
 from . import tree as T
 
 # leaves bigger than this are updated slice by slice along axis 0
@@ -123,6 +125,9 @@ class AdamW:
                 "v": T.tree_map(_zeros_like, params),
                 "count": _count(params)}
 
+    def state_axes(self, param_axes):
+        return {"m": param_axes, "v": param_axes, "count": ""}
+
     def update(self, grads, state, params):
         grads, gn = clip_by_global_norm(grads, self.clip)
         c = state["count"] + 1
@@ -178,6 +183,16 @@ class Adafactor:
                                           device=p.device)}
             return {"v": _zeros_like(p)}
         return {"stats": T.tree_map(one, params), "count": _count(params)}
+
+    def state_axes(self, param_axes):
+        def one(ax):
+            axes = parse_axes(ax)
+            if len(axes) >= 2:
+                def j(t):
+                    return " ".join("." if a is None else a for a in t)
+                return {"vr": j(axes[:-1]), "vc": j(axes[:-2] + axes[-1:])}
+            return {"v": ax}
+        return {"stats": T.tree_map(one, param_axes), "count": ""}
 
     def update(self, grads, state, params):
         grads, gn = clip_by_global_norm(grads, self.clip)

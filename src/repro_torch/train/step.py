@@ -23,14 +23,17 @@ gradient is.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from contextlib import nullcontext
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..core.engine import resolve_device
 from ..models import convert, layers, lm
+from ..sharding import rules as R
 from . import tree as T
 
 
@@ -48,21 +51,45 @@ def init_masters(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
 class Working:
     """The working model: an ``lm.LM`` whose parameters take the masters
     rounded to the compute dtype at every ``load``, and the gradient
-    buffers its parameters' ``.grad`` are views into."""
+    buffers its parameters' ``.grad`` are views into.
 
-    def __init__(self, cfg: ModelConfig, device):
+    Masters given as DTensors (the dry run's, ``launch/specs.py``) make
+    the working parameters and the gradient buffers DTensors laid out as
+    their masters (a stacked leaf's slice as the leaf without its
+    replicated stack axis)."""
+
+    def __init__(self, cfg: ModelConfig, device,
+                 masters: Optional[Dict] = None):
         self.cd = layers.dtype_of(cfg.compute_dtype)
-        self.model = lm.LM(cfg, device)
-        self.slots = list(convert._leaf_paths(cfg, self.model))
+        laid_out = masters is not None and \
+            isinstance(T.leaves(masters)[0], DTensor)
+        # laid out, only the shards are made: the whole tensors are shapes
+        with R.shapes_only() if laid_out else nullcontext():
+            self.model = lm.LM(cfg, device)
+        self.slots = []
         self.grads: Dict = {}
-        for param, path, r in self.slots:
-            if r is None:
-                T.put(self.grads, path, torch.zeros_like(param))
+        for param, path, r in list(lm.param_paths(cfg, self.model)):
+            master = None if masters is None else T.get(masters, path)
+            if isinstance(master, DTensor):
+                spec = R.spec_of(master.placements, master.device_mesh,
+                                 master.dim())
+                assert r is None or spec[0] is None, \
+                    "a stacked leaf's stack axis is sharded"
+                param = R.distribute_parameter(
+                    self.model, param, spec if r is None else spec[1:],
+                    master.device_mesh)
+            self.slots.append((param, path, r))
+            if isinstance(master, DTensor) and r in (None, 0):
+                buf = torch.zeros_like(master, dtype=param.dtype)
+            elif r is None:
+                buf = torch.zeros_like(param)
             elif r == 0:
-                n = sum(1 for _, p_, _ in self.slots if p_ == path)
-                T.put(self.grads, path, torch.zeros(
-                    (n,) + tuple(param.shape), dtype=param.dtype,
-                    device=param.device))
+                buf = torch.zeros((lm.stack_depth(cfg, path),)
+                                  + tuple(param.shape), dtype=param.dtype,
+                                  device=param.device)
+            else:
+                continue
+            T.put(self.grads, path, buf)
         for param, path, r in self.slots:
             buf = T.get(self.grads, path)
             param.requires_grad_(True)
@@ -101,7 +128,7 @@ def make_grad_fn(cfg: ModelConfig, accum_steps: int = 1, device=None,
 
     def grad_fn(masters: Dict, batch: Dict):
         if "w" not in work:
-            work["w"] = Working(cfg, device)
+            work["w"] = Working(cfg, device, masters)
         w = work["w"]
         w.load(masters)
         batch = _to_device(batch, device)
@@ -112,8 +139,11 @@ def make_grad_fn(cfg: ModelConfig, accum_steps: int = 1, device=None,
         else:
             lsum, ms = torch.zeros((), device=device), []
             for i in range(accum_steps):
-                mb = {k: v.reshape((accum_steps, -1) + v.shape[1:])[i]
-                      for k, v in batch.items()}
+                # on a mesh each microbatch is laid out by batch again
+                mb = {k: R.constrain(
+                    v.reshape((accum_steps, -1) + v.shape[1:])[i],
+                    ("batch",) + (None,) * (v.dim() - 1))
+                    for k, v in batch.items()}
                 l, m = lm.loss_fn(cfg, w.model, mb)
                 (l / accum_steps).backward()
                 lsum = lsum + l.detach()

@@ -17,6 +17,8 @@ plain versions repeat the kernel's order, so on the card the same
 tolerance holds with room to spare.
 """
 
+import types
+
 import numpy as np
 import pytest
 
@@ -25,6 +27,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import graph as tg  # noqa: E402
 from repro_torch.core import semiring as ts  # noqa: E402
 from repro_torch.kernels import bsr_spmv as tk  # noqa: E402
+from repro_torch.kernels.cuda_lib import on_cpu  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 SEMIRINGS = ["plus_times", "min_plus", "max_min", "min_select"]
@@ -198,9 +201,12 @@ def test_wrappers_refuse_bad_input():
     x = torch.zeros((1, bsr.r, 8))
     with pytest.raises(ValueError, match="different devices"):
         tk.bsr_spmv(v, c, n, x.to("meta"))
+    # meta tensors (the dry run's) take the plain version: shapes only
+    y = tk.bsr_spmv(v.to("meta"), c.to("meta"), n.to("meta"), x.to("meta"))
+    assert y.device.type == "meta" and tuple(y.shape) == (1, bsr.r, 8)
+    # any device but the CPU, meta or one card is refused
     with pytest.raises(ValueError, match="unsupported device"):
-        tk.bsr_spmv(v.to("meta"), c.to("meta"), n.to("meta"),
-                    x.to("meta"))
+        on_cpu(types.SimpleNamespace(device=torch.device("xpu")))
 
 
 # -- on the card: the CUDA kernels vs the plain versions --------------------
