@@ -5,12 +5,19 @@ path, LM serving (granite-3-2b at full width), RWKV-6 serving
 (recurrentgemma-9b at full width and depth), MoE serving (dbrx-132b at
 full width, 8 of its 40 layers), MLA serving (minicpm3-4b at full width
 and depth), vision serving (llama-3.2-vision-11b at full width and
-depth), audio serving (whisper-tiny at full width and depth) and
-training (granite-3-2b and rwkv6-1.6b at full width and depth,
-recurrentgemma-9b at full width), every hand-written kernel against its
-plain version, and the pod dry run's counters against the card.
+depth), audio serving (whisper-tiny at full width and depth), the last
+three configurations served (chatglm3-6b at full width and depth,
+nemotron-4-340b at full width, 4 of 96 layers, llama4-maverick-400b-a17b
+at full width, 2 of 48 layers with all 128 experts) and training
+(granite-3-2b and rwkv6-1.6b at full width and depth, recurrentgemma-9b
+at full width), every hand-written kernel against its plain version,
+and the pod dry run's counters against the card.
 
-    python3 chip_smoke.py            # everything (about 15 minutes)
+    python3 chip_smoke.py            # everything (about 16 minutes)
+
+From a ``git archive`` of the tree it took 764 and 971 s of command on
+two NVIDIA H100 80GB HBM3 hosts at a 700 W power limit, the last three
+served configurations 34 and 45 s of it.
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
@@ -270,7 +277,39 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      holds the kernel at both, in the model's memory too, and at
      whisper's decoder self-attention (S 448, causal), with a dropped key
      tile that must fail at both new shapes;
- 18. training (``train_phases``, after whisper's weights are freed):
+ 18. the three configurations served last (``late_phases``, after
+     whisper's weights are freed), each freed before the next: for
+     each, first the tensor-core flash kernel against its plain version
+     at its prefill shape (B 4, S 1024, causal, bf16; also in the
+     model's memory) with a dropped key tile that must fail, last its
+     times there (call, device, bound, plain, SDPA with ``enable_gqa``).
+     chatglm3-6b (28 layers, d_model 4096, 32 heads over 2 kv heads of
+     128: group 16, RoPE on half of each head, d_ff 13,696, vocab
+     65,024; param_count 6,243,450,880; 12.5 GB in bf16; seed 11) at
+     full width and depth through ``lm_path``, granite's phases and
+     gates (its f32 upcast, 25.0 GB, fits beside it: both gates at 28
+     layers); flash launches exactly 28 x the prefills on the tensor
+     cores.  nemotron-4-340b (d_model 18,432, 96 heads over 8 kv heads
+     of 192: group 12, squared-ReLU d_ff 73,728, untied vocab 256,000;
+     seed 12) at full width, its first 4 of 96 layers (param_count
+     23,253,368,832; 46.5 GB; six would be 60.3), the same traffic,
+     flash launches 4 x the prefills on the tensor cores (D 192), the
+     bf16 logit gate, the serving metrics; then, freed, its first layer
+     drawn anew (bit sums checked), converted to f32 (51.6 GB): the f32
+     gate, its wave once on the CUDA-core kernel at D 192.
+     llama4-maverick-400b-a17b (d_model 5120, 40 heads over 8 kv heads
+     of 128: group 5, one dense and one MoE layer of 128 experts, top 1,
+     capacity 10 a group of 1024, a shared expert, vocab 202,048; seed
+     13) at full width, its first 2 of 48 layers (param_count
+     18,553,262,080; 37.1 GB) through dbrx's phases (``serve_moe``: the
+     bf16 gate on the kernel path's routes, teacher-forced token
+     check), flash launches 2 x the prefills, a decode step's 32.2 GB of
+     expert weights and their bound beside its ms (dropless: every
+     expert is read); then, freed, the same 2 layers with 32 experts
+     drawn from the seed (param_count 6,473,175,040; the leaves outside
+     the MoE checked equal) in f32 (25.9 GB): the f32 gate, every route
+     equal, its wave on the CUDA cores once a layer;
+ 19. training (``train_phases``, after the late models are freed):
      granite-3-2b through the ported ``train/``, ``data/`` and
      ``ckpt/``.  The tensor-core flash kernel at the training shape (B
      8, H 32, Hkv 8, S 1024, D 64, bf16, the model's memory) through
@@ -300,7 +339,7 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      at step 3 of 4, gives the uninterrupted run's masters and state bit
      for bit under ``torch.use_deterministic_algorithms``; the kernel's
      times at the training shape;
- 19. training the scan families (``scan_train_phases``): the recurrent
+ 20. training the scan families (``scan_train_phases``): the recurrent
      WKV6 backward kernel (``csrc/wkv6_backward.cu``) against its plain
      version bit for bit at rwkv6's training shape cut to batch 2 (H 32,
      hs 64, T 1024, bf16, init decays, nonzero ds_last) and at a short
@@ -341,7 +380,7 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      scan forward and backward, flash forward, the plain attention's
      backward, the optimizer and the rest; the four kernels' times at
      the main paths' shapes;
- 20. ``dryrun_vs_card``: the pod dry run's counters
+ 21. ``dryrun_vs_card``: the pod dry run's counters
      (``launch/dryrun.trace``) around granite-3-2b's training step at
      the main path's shape (8 x 1024, full width and depth, AdamW, remat
      on), once on meta tensors laid out on ``make_host_mesh()``'s (1, 1)
@@ -350,7 +389,7 @@ Phases, in order; any mismatch raises and the script exits non-zero:
      counts in their place) within 1 %, no collective on (1, 1), the
      estimated peak within 0.75-1.25x ``torch.cuda.max_memory_allocated``
      above what was allocated before the step's arguments;
- 21. a JSON line with every kernel; the last line is
+ 22. a JSON line with every kernel; the last line is
      ``{"ok": true, "device": {...}}``.
 
 Each earlier JSON line carries the card's name and power limit and the
@@ -360,6 +399,16 @@ part, call the phases from Python, e.g.
     python3 -c 'import chip_smoke as c; c.setup(); c.build_all(); c.rwkv_phases()'
     python3 -c 'import chip_smoke as c; c.setup(); c.train_phases()'
     python3 -c 'import chip_smoke as c; c.setup(); c.build_all(); c.scan_train_phases()'
+    python3 -c 'import chip_smoke as c; c.setup(); c.late_phases()'
+
+The serving phases rehearse on the CPU at reduced size: set
+``c.DEVICE = "cpu"`` and ``c.LM_REDUCED = True``, stub the
+``torch.cuda`` calls (``synchronize``, ``reset_peak_memory_stats``,
+``empty_cache``, ``memory_allocated``, ``max_memory_allocated``) and
+``c.free_device_bytes``, make ``flash_attention.route`` give
+"tensor_cores" for bf16 and ``flash_attention.flash_attention`` a
+counting ``ref.attention_ref``, ``c.profiled`` a timed call and
+``c.time_attention_case`` a dict row.
 """
 
 from __future__ import annotations
@@ -2901,54 +2950,62 @@ def upcast(cfg, model):
     return dataclasses.replace(cfg, num_layers=keep), m32
 
 
-def check_prefill_logits(cfg, model, toks, phase="lm_logits"):
+def _rel(a, b) -> float:
+    """‖a − b‖₂ / ‖b‖₂ in f32."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def logit_gate(cfg, model, toks, dt, phase):
     """One wave's prefill logits with the kernel against the same model
-    with mha_ref called explicitly: the served bf16 model, and its
-    weights upcast to f32 (``upcast``).  Beside each: the plain path on
-    the first two prompts alone (another batch size, so other matmul
-    kernels), and a dropped key tile in every layer, which must read
-    above the f32 gate; then the bf16 model's own distance from its f32
-    upcast.  Returns, by dtype, the layers run and the flash launches of
-    the kernel's prefill (the counts set to 0 just before it and read
-    just after): the f32 wave is the f32 route's main path."""
+    with mha_ref called explicitly (``LOGIT_REL_TOL[dt]``); beside it the
+    plain path on the first two prompts alone (another batch size, so
+    other matmul kernels) and a dropped key tile in every layer, which
+    must read above the f32 gate.  Returns (the flash launches of the
+    kernel's prefill, the counts set to 0 just before it and read just
+    after, with the layers run; the plain logits)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models import lm
-
-    def rel(a, b):
-        return float((a.float() - b.float()).norm() / b.float().norm())
-
     cache_len = toks.shape[1]
+    fa.reset_launch_counts()
+    got, _ = lm.prefill(cfg, model, toks, cache_len=cache_len)
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    with ops_swapped("attention", ref.attention_ref):
+        want, _ = lm.prefill(cfg, model, toks, cache_len=cache_len)
+        half, _ = lm.prefill(cfg, model, toks[:2], cache_len=cache_len)
+    with ops_swapped("attention", dropped_tile_attention):
+        bad, _ = lm.prefill(cfg, model, toks, cache_len=cache_len)
+    err, fault = _rel(got, want), _rel(bad, want)
+    finite = bool(torch.isfinite(got).all())
+    emit(phase=phase, dtype=dt, layers=cfg.num_layers, rel_l2=err,
+         tol=LOGIT_REL_TOL[dt], batch2_rel_l2=_rel(half, want[:2]),
+         dropped_tile_rel_l2=fault,
+         max_abs=float((got.float() - want.float()).abs().max()),
+         max_ref=float(want.float().abs().max()),
+         top1_agree=float((got.argmax(-1) == want.argmax(-1))
+                          .float().mean()), finite=finite, **launches)
+    if not finite or err > LOGIT_REL_TOL[dt] or (
+            dt == "float32" and fault <= LOGIT_REL_TOL[dt]):
+        raise AssertionError(f"{dt} prefill logits off mha_ref: {err}; "
+                             f"a dropped key tile: {fault}")
+    return {"layers": cfg.num_layers, **launches}, want
+
+
+def check_prefill_logits(cfg, model, toks, phase="lm_logits"):
+    """``logit_gate`` on the served bf16 model and on its weights upcast
+    to f32 (``upcast``), then the bf16 model's own distance from its f32
+    upcast.  Returns, by dtype, the gate's launches: the f32 wave is the
+    f32 route's main path."""
+    import torch
     cfg32, m32 = upcast(cfg, model)
-    plain, routes = {}, {}
+    routes, plain = {}, {}
     for dt, c, m in (("bfloat16", cfg, model), ("float32", cfg32, m32)):
-        fa.reset_launch_counts()
-        got, _ = lm.prefill(c, m, toks, cache_len=cache_len)
-        torch.cuda.synchronize()
-        routes[dt] = {"layers": c.num_layers, **fa.launch_counts}
-        with ops_swapped("attention", ref.attention_ref):
-            want, _ = lm.prefill(c, m, toks, cache_len=cache_len)
-            half, _ = lm.prefill(c, m, toks[:2], cache_len=cache_len)
-        with ops_swapped("attention", dropped_tile_attention):
-            bad, _ = lm.prefill(c, m, toks, cache_len=cache_len)
-        plain[dt] = want
-        err = rel(got, want)
-        finite = bool(torch.isfinite(got).all())
-        emit(phase=phase, dtype=dt, layers=c.num_layers, rel_l2=err,
-             tol=LOGIT_REL_TOL[dt], batch2_rel_l2=rel(half, want[:2]),
-             dropped_tile_rel_l2=rel(bad, want),
-             max_abs=float((got.float() - want.float()).abs().max()),
-             max_ref=float(want.float().abs().max()),
-             top1_agree=float((got.argmax(-1) == want.argmax(-1))
-                              .float().mean()), finite=finite)
-        if not finite or err > LOGIT_REL_TOL[dt] or (
-                dt == "float32" and rel(bad, want) <= LOGIT_REL_TOL[dt]):
-            raise AssertionError(f"{dt} prefill logits off mha_ref: {err}; "
-                                 f"a dropped key tile: {rel(bad, want)}")
+        routes[dt], plain[dt] = logit_gate(c, m, toks, dt, phase)
     if cfg32.num_layers == cfg.num_layers:
         emit(phase=phase + "_bf16_vs_f32",
-             rel_l2=rel(plain["bfloat16"], plain["float32"]))
+             rel_l2=_rel(plain["bfloat16"], plain["float32"]))
     del m32
     torch.cuda.empty_cache()
     return routes
@@ -3168,41 +3225,79 @@ def serving_metrics(cfg, model, toks, counts, phase, split=None,
     return rec
 
 
-def lm_path():
-    """Serve granite-3-2b at full width: static generate and ServeLoop
-    with every prefill through the kernel, then the serving metrics."""
+def init_cut(cfg, seed, phase, want_params=None, **info):
+    """``lm.init`` of ``cfg`` on the card from ``seed``; prints its
+    layers, parameters, weight GB and seconds (and ``info``) and checks
+    the parameters against ``param_count()`` (which leaves out ln_f) and
+    that against ``want_params`` (a full-width run's
+    ``CUT_PARAM_COUNTS``)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import lm
-
-    cfg = get_config(LM_ARCH)
-    if LM_REDUCED:
-        cfg = cfg.reduced()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+    model = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
                     device=DEVICE)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    emit(phase="lm_init", arch=cfg.name, params=n_params,
+    full = get_config(cfg.name.removesuffix("-reduced"))
+    emit(phase=phase, arch=cfg.name, layers=cfg.num_layers,
+         full_layers=full.num_layers, seed=seed,
+         params=n_params, param_count=cfg.param_count(),
          weight_gb=sum(p.numel() * p.element_size()
                        for p in model.parameters()) / 1e9,
-         seconds=time.perf_counter() - t0)
+         seconds=time.perf_counter() - t0, **info)
+    if n_params != cfg.param_count() + cfg.d_model or (
+            want_params is not None and not LM_REDUCED
+            and cfg.param_count() != want_params):
+        raise AssertionError(f"{cfg.name}: {n_params} parameters, "
+                             f"param_count {cfg.param_count()}, expected "
+                             f"{want_params}")
+    return model
 
+
+def flash_launches_exact(launches, n, path, what):
+    """The flash kernel launched exactly ``n`` times, all on ``path``."""
+    other = "cuda_cores" if path == "tensor_cores" else "tensor_cores"
+    want = {"flash_attention": n, "flash_attention_" + path: n,
+            "flash_attention_" + other: 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: flash launches {got}, expected "
+                             f"{want}")
+
+
+def lm_path(arch=LM_ARCH, prefix="lm", seed=0, want_params=None):
+    """Serve ``arch`` (granite-3-2b by default) at full width and depth:
+    static generate and ServeLoop with every prefill through the kernel
+    (layers x prefills launches, all on the bf16 route, none at decode),
+    the logit gates (``check_prefill_logits``; the f32 wave launches the
+    CUDA-core kernel once a layer), then the serving metrics.
+    Phases ``<prefix>_init``, ``_main_path``, ``_logits``, ``_serving``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_config(arch)
+    if LM_REDUCED:
+        cfg = cfg.reduced()
+    model = init_cut(cfg, seed, prefix + "_init", want_params)
     prompts, launches, prefills, _ = serve_traffic(
-        cfg, model, fa.launch_counts, fa.reset_launch_counts, "lm_main_path")
+        cfg, model, fa.launch_counts, fa.reset_launch_counts,
+        prefix + "_main_path")
     path = fa.route(getattr(torch, cfg.compute_dtype), cfg.head_dim)
-    for key in ("flash_attention", "flash_attention_" + path):
-        if launches[key] != cfg.num_layers * prefills:
-            raise AssertionError(
-                f"{key} launched {launches[key]} times, expected "
-                f"{cfg.num_layers} x {prefills} prefills")
+    flash_launches_exact(launches, cfg.num_layers * prefills, path,
+                         f"{cfg.name}: {cfg.num_layers} layers x "
+                         f"{prefills} prefills, none at decode")
 
     toks = torch.as_tensor(prompts[:PROMPTS], dtype=torch.long,
                            device=DEVICE)
-    check_prefill_logits(cfg, model, toks)
-    rec = serving_metrics(cfg, model, toks, fa.launch_counts, "lm_serving")
+    f32_wave = check_prefill_logits(cfg, model, toks,
+                                    phase=prefix + "_logits")["float32"]
+    flash_launches_exact(f32_wave, f32_wave["layers"], "cuda_cores",
+                         f"{cfg.name} f32 prefill wave")
+    rec = serving_metrics(cfg, model, toks, fa.launch_counts,
+                          prefix + "_serving")
     return launches, rec
 
 
@@ -3645,9 +3740,6 @@ def check_rwkv_logits(cfg, model, toks):
     from repro_torch.kernels import wkv6 as twkv
     from repro_torch.models import lm
 
-    def rel(a, b):
-        return float((a.float() - b.float()).norm() / b.float().norm())
-
     m32 = copy.deepcopy(model).float()
     plain = {}
     for dt, m in (("bfloat16", model), ("float32", m32)):
@@ -3659,8 +3751,8 @@ def check_rwkv_logits(cfg, model, toks):
         with ops_swapped("wkv6", _einsum_order_wkv6):
             other, _ = lm.prefill(cfg, m, toks, cache_len=PROMPT_LEN)
         plain[dt] = want
-        err, fault = rel(got, want), rel(bad, want)
-        sound = rel(other, want)
+        err, fault = _rel(got, want), _rel(bad, want)
+        sound = _rel(other, want)
         finite = bool(torch.isfinite(got).all())
         emit(phase="rwkv_logits", dtype=dt, rel_l2=err,
              route=twkv.route(getattr(torch, dt), toks.shape[1],
@@ -3681,7 +3773,7 @@ def check_rwkv_logits(cfg, model, toks):
             raise AssertionError(f"{dt}: y summed in another order ({sound})"
                                  f" fails the logit limit")
     emit(phase="rwkv_logits_bf16_vs_f32",
-         rel_l2=rel(plain["bfloat16"], plain["float32"]))
+         rel_l2=_rel(plain["bfloat16"], plain["float32"]))
     del m32
     torch.cuda.empty_cache()
 
@@ -4040,9 +4132,6 @@ def moe_logit_gate(cfg, model, toks, dt, phase):
     from repro_torch.kernels import ref
     from repro_torch.models import lm
 
-    def rel(x, y):
-        return float((x.float() - y.float()).norm() / y.float().norm())
-
     def prefill():
         return lm.prefill(cfg, model, toks, cache_len=toks.shape[1])[0]
 
@@ -4062,10 +4151,10 @@ def moe_logit_gate(cfg, model, toks, dt, phase):
     with ops_swapped("attention", dropped_tile_attention), held():
         bad = prefill()
     agree, moved, gap = route_agreement(kern.calls, free.calls)
-    err, fault = rel(got, want), rel(bad, want)
+    err, fault = _rel(got, want), _rel(bad, want)
     finite = bool(torch.isfinite(got).all())
     emit(phase=phase, dtype=dt, layers=cfg.num_layers, routes_held=hold,
-         rel_l2=err, tol=LOGIT_REL_TOL[dt], free_rel_l2=rel(got, want_free),
+         rel_l2=err, tol=LOGIT_REL_TOL[dt], free_rel_l2=_rel(got, want_free),
          dropped_tile_rel_l2=fault, route_agreement=agree,
          moved_tokens=moved, moved_gate_gap_max=gap,
          frac_dropped=[1 - float(r.keep.float().mean()) for r in kern.calls],
@@ -4080,61 +4169,42 @@ def moe_logit_gate(cfg, model, toks, dt, phase):
     return launches
 
 
-def weight_bits(model, n_blocks):
+def weight_bits(model, n_blocks, skip=()):
     """Per parameter of the embedding, head, ln_f and the first
-    ``n_blocks`` blocks: the sums of its bit patterns, all and every
-    997th (two models drawn alike give equal sums)."""
+    ``n_blocks`` blocks, but those whose names start with one of
+    ``skip``: the sums of its bit patterns, all and every 997th (two
+    models drawn alike give equal sums)."""
     import torch
     out = {}
     for name, p in model.named_parameters():
-        if name.startswith("blocks.") and int(name.split(".")[1]) >= n_blocks:
+        if name.startswith("blocks.") and int(name.split(".")[1]) >= n_blocks \
+                or name.startswith(tuple(skip)):
             continue
         bits = p.detach().view(torch.int16 if p.element_size() == 2
                                else torch.int32).flatten()
-        out[name] = (int(bits.sum(dtype=torch.int64)),
+        # in slices: an int64 copy of nemotron's embedding is 37.7 GB
+        out[name] = (sum(int(c.sum(dtype=torch.int64))
+                         for c in bits.split(1 << 27)),
                      int(bits[::997].sum(dtype=torch.int64)))
     return out
 
 
-def moe_path():
-    """Serve dbrx-132b at full width, its first MOE_LAYERS layers: static
-    generate and ServeLoop with every prefill's attention through the
-    tensor-core flash kernel (none on the CUDA cores, none at decode),
-    the bf16 logit gate with its routes, the serving metrics; then the
-    f32 gate on the first two layers, drawn anew from the same seed (an
-    f32 copy of two layers, 31 GB, does not fit beside the eight in
-    bf16), whose wave runs the f32 route.  Returns the serving launches,
-    the f32 wave's and the metrics."""
-    import dataclasses
-    import gc
+def serve_moe(cfg, seed, prefix, want_params):
+    """Serve the MoE model ``cfg`` from ``seed``: static generate and
+    ServeLoop with every prefill's attention through the tensor-core
+    flash kernel (none on the CUDA cores, none at decode), the bf16 logit
+    gate on the kernel path's routes, the serving metrics with the
+    prefill's MoE split.  Phases ``<prefix>_init``, ``_main_path``,
+    ``_logits``, ``_serving``.  Returns (model, the wave's tokens, the
+    serving launches, the metrics)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import lm, moe
-
-    full = get_config(MOE_ARCH)
-    cfg = full.reduced() if LM_REDUCED else dataclasses.replace(
-        full, num_layers=MOE_LAYERS)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(5),
-                    device=DEVICE)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    emit(phase="moe_init", arch=cfg.name, layers=cfg.num_layers,
-         cut_from=full.num_layers, experts=cfg.num_experts,
-         top_k=cfg.top_k, group=cfg.moe_group_size,
-         capacity=moe.capacity(cfg, cfg.moe_group_size, False),
-         params=n_params, param_count=cfg.param_count(),
-         weight_gb=sum(p.numel() * p.element_size()
-                       for p in model.parameters()) / 1e9,
-         seconds=time.perf_counter() - t0)
-    # param_count leaves out ln_f
-    if n_params != cfg.param_count() + cfg.d_model or (
-            not LM_REDUCED and cfg.param_count() != MOE_PARAM_COUNT):
-        raise AssertionError(f"{cfg.name}: {n_params} parameters, "
-                             f"param_count {cfg.param_count()}")
-
+    from repro_torch.models import moe
+    model = init_cut(cfg, seed, prefix + "_init", want_params,
+                     experts=cfg.num_experts, top_k=cfg.top_k,
+                     shared_expert=cfg.shared_expert,
+                     group=cfg.moe_group_size,
+                     capacity=moe.capacity(cfg, cfg.moe_group_size, False))
     # prompts of PROMPT_LEN = moe_group_size tokens: every prefill group is
     # one whole prompt, in the static batch and in any ServeLoop wave, so
     # capacity drops are the same in both and the token check holds
@@ -4143,43 +4213,90 @@ def moe_path():
                              f"{cfg.moe_group_size}")
     prompts, launches, prefills, _ = serve_traffic(
         cfg, model, fa.launch_counts, fa.reset_launch_counts,
-        "moe_main_path")
-    path = fa.route(getattr(torch, cfg.compute_dtype), cfg.head_dim)
-    n = cfg.num_layers * prefills
-    want = {"flash_attention": n, "flash_attention_tensor_cores": n,
-            "flash_attention_cuda_cores": 0}
-    if path != "tensor_cores" or launches != want:
-        raise AssertionError(f"flash launches {launches} on {path}, "
-                             f"expected {want}: {cfg.num_layers} layers x "
-                             f"{prefills} prefills, none at decode")
-
+        prefix + "_main_path")
+    flash_launches_exact(launches, cfg.num_layers * prefills,
+                         "tensor_cores", f"{cfg.name}: {cfg.num_layers} "
+                         f"layers x {prefills} prefills, none at decode")
     toks = torch.as_tensor(prompts[:PROMPTS], dtype=torch.long,
                            device=DEVICE)
-    moe_logit_gate(cfg, model, toks, "bfloat16", "moe_logits")
-    rec = serving_metrics(cfg, model, toks, fa.launch_counts, "moe_serving",
-                          split=MOE_PREFILL_SPLIT)
+    moe_logit_gate(cfg, model, toks, "bfloat16", prefix + "_logits")
+    rec = serving_metrics(cfg, model, toks, fa.launch_counts,
+                          prefix + "_serving", split=MOE_PREFILL_SPLIT)
+    return model, toks, launches, rec
+
+
+def moe_path():
+    """Serve dbrx-132b at full width, its first MOE_LAYERS layers
+    (``serve_moe``); then the f32 gate on the first two layers, drawn
+    anew from the same seed (an f32 copy of two layers, 31 GB, does not
+    fit beside the eight in bf16), whose wave runs the f32 route.
+    Returns the serving launches, the f32 wave's and the metrics."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+
+    full = get_config(MOE_ARCH)
+    cfg = full.reduced() if LM_REDUCED else dataclasses.replace(
+        full, num_layers=MOE_LAYERS)
+    model, toks, launches, rec = serve_moe(cfg, 5, "moe", MOE_PARAM_COUNT)
     bits = weight_bits(model, 2)
     del model
     gc.collect()
     torch.cuda.empty_cache()
 
     cfg2 = dataclasses.replace(cfg, num_layers=2)
-    m32 = lm.init(cfg2, torch.Generator(device=DEVICE).manual_seed(5),
-                  device=DEVICE)
+    m32 = init_cut(cfg2, 5, "moe_gate_init")
     if weight_bits(m32, 2) != bits:
         raise AssertionError("the 2-layer model's weights differ from the "
                              "served model's first two layers")
     m32.float()
     f32_wave = moe_logit_gate(cfg2, m32, toks, "float32", "moe_logits")
-    need = {"flash_attention": 2, "flash_attention_cuda_cores": 2,
-            "flash_attention_tensor_cores": 0}
-    if {k: f32_wave[k] for k in need} != need:
-        raise AssertionError(f"f32 prefill wave: flash launches {f32_wave}, "
-                             f"expected {need}")
+    flash_launches_exact(f32_wave, 2, "cuda_cores",
+                         f"{cfg.name} f32 prefill wave")
     del m32
     gc.collect()
     torch.cuda.empty_cache()
     return launches, f32_wave, rec
+
+
+def prefill_shape_vs_plain(gen, what, h, hkv, d):
+    """The tensor-core flash kernel against its plain version at a
+    model's prefill shape (B PROMPTS, S PROMPT_LEN, causal, bf16), in
+    (B, H, S, D) memory and in the model's (B, S, H, D), with a dropped
+    key tile that must fail.  Returns the larger |kernel − plain|."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref as tref
+    bf16, errs = torch.bfloat16, []
+    path = fa.route(bf16, d)
+    for layout in (False, True):
+        case = f"{what} prefill D={d} Hkv={hkv} (group {h // hkv}) bf16" + (
+            ", model layout (B,S,H,D)" if layout else "")
+        q, k, v = _qkv(gen, PROMPTS, h, hkv, PROMPT_LEN, d, bf16,
+                       model_layout=layout)
+        before = fa.launch_counts["flash_attention_" + path]
+        got = fa.flash_attention(q, k, v)
+        if path != "tensor_cores" or \
+                fa.launch_counts["flash_attention_" + path] != before + 1:
+            raise AssertionError(f"{case}: not launched on the tensor "
+                                 f"cores ({path})")
+        want = tref.attention_ref(q, k, v)
+        errs.append(_attn_check(got, want, bf16, case, path))
+        if not layout:
+            _planted_fault(q, k, v, want, True, None, case)
+    return max(errs)
+
+
+def served_entry(shape, launches, err, row):
+    """A kernels line entry of the tensor-core flash kernel at a served
+    model's prefill shape."""
+    return {"name": "flash_attention", "route": "cuda",
+            "path": "tensor_cores", "shape": shape,
+            "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:121",
+            "launches": launches["flash_attention_tensor_cores"],
+            "max_abs_err": err, **row}
 
 
 def moe_phases():
@@ -4190,37 +4307,15 @@ def moe_phases():
     shape.  Returns the kernels line entry."""
     import gc
     import torch
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref as tref
     gen = torch.Generator(device=DEVICE).manual_seed(6)
-    bf16, errs = torch.bfloat16, []
-    path = fa.route(bf16, 128)
-    for layout in (False, True):
-        what = "dbrx prefill D=128 Hkv=8 (group 6) bf16" + (
-            ", model layout (B,S,H,D)" if layout else "")
-        q, k, v = _qkv(gen, PROMPTS, 48, 8, PROMPT_LEN, 128, bf16,
-                       model_layout=layout)
-        before = fa.launch_counts["flash_attention_" + path]
-        got = fa.flash_attention(q, k, v)
-        if fa.launch_counts["flash_attention_" + path] != before + 1:
-            raise AssertionError(f"{what}: not launched on {path}")
-        want = tref.attention_ref(q, k, v)
-        errs.append(_attn_check(got, want, bf16, what, path))
-        if not layout:
-            _planted_fault(q, k, v, want, True, None, what)
-    del q, k, v, got, want
+    err = prefill_shape_vs_plain(gen, "dbrx", 48, 8, 128)
     launches, _, _ = moe_path()
     gc.collect()
     torch.cuda.empty_cache()
     row = time_attention_case(gen, "dbrx", PROMPTS, 48, 8, PROMPT_LEN, 128,
-                              bf16)
+                              torch.bfloat16)
     emit(phase="moe_freed", device_gb=torch.cuda.memory_allocated() / 1e9)
-    return [{"name": "flash_attention", "route": "cuda",
-             "path": "tensor_cores", "shape": "dbrx D 128, Hkv 8 of 48",
-             "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-             "replaces": "src/repro/kernels/flash_attention.py:121",
-             "launches": launches["flash_attention_tensor_cores"],
-             "max_abs_err": max(errs), **row}]
+    return [served_entry("dbrx D 128, Hkv 8 of 48", launches, err, row)]
 
 
 def mla_decode_gate(cfg, model, prompts, flash=False):
@@ -4237,9 +4332,6 @@ def mla_decode_gate(cfg, model, prompts, flash=False):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import lm
 
-    def rel(x, y):
-        return float((x.float() - y.float()).norm() / y.float().norm())
-
     s = prompts.shape[1]
     full = torch.as_tensor(np.concatenate(
         [prompts[:PROMPTS], prompts[PROMPTS:2 * PROMPTS, :1]], 1),
@@ -4254,14 +4346,14 @@ def mla_decode_gate(cfg, model, prompts, flash=False):
         out[dt] = (whole, step)
     torch.cuda.synchronize()
     launches = dict(fa.launch_counts)
-    err = rel(out["float32"][1], out["float32"][0])
+    err = _rel(out["float32"][1], out["float32"][0])
     finite = bool(torch.isfinite(out["float32"][1]).all())
     emit(phase="mla_decode_vs_prefill", dtype="float32",
          layers=cfg32.num_layers, position=s, rel_l2=err,
          tol=MLA_DECODE_TOL,
          max_abs=float((out["float32"][1] - out["float32"][0]).abs().max()),
-         bf16_rel_l2=rel(out["bfloat16"][1], out["bfloat16"][0]),
-         bf16_vs_f32_rel_l2=rel(out["bfloat16"][0], out["float32"][0])
+         bf16_rel_l2=_rel(out["bfloat16"][1], out["bfloat16"][0]),
+         bf16_vs_f32_rel_l2=_rel(out["bfloat16"][0], out["float32"][0])
          if cfg32.num_layers == cfg.num_layers else "not measured (cut)",
          finite=finite, **launches)
     if not finite or err > MLA_DECODE_TOL or (
@@ -4441,9 +4533,6 @@ def cross_logit_gate(cfg, model, toks, extras, dt, phase):
     from repro_torch.kernels import ref
     from repro_torch.models import lm
 
-    def rel(x, y):
-        return float((x.float() - y.float()).norm() / y.float().norm())
-
     def prefill(n=None):
         return lm.prefill(cfg, model, toks[:n], cache_len=toks.shape[1],
                           extras=extras if n is None else rows(extras, 0,
@@ -4459,10 +4548,10 @@ def cross_logit_gate(cfg, model, toks, extras, dt, phase):
         want, half = prefill(), prefill(2)
     with ops_swapped("attention", plain_beside_cross):
         bad = prefill()
-    err, fault = rel(got, want), rel(bad, want)
+    err, fault = _rel(got, want), _rel(bad, want)
     finite = bool(torch.isfinite(got).all())
     emit(phase=phase, dtype=dt, layers=cfg.num_layers, rel_l2=err,
-         tol=LOGIT_REL_TOL[dt], batch2_rel_l2=rel(half, want[:2]),
+         tol=LOGIT_REL_TOL[dt], batch2_rel_l2=_rel(half, want[:2]),
          dropped_tile_rel_l2=fault,
          max_abs=float((got.float() - want.float()).abs().max()),
          max_ref=float(want.float().abs().max()),
@@ -4680,10 +4769,6 @@ def cross_phases():
              device_gb=torch.cuda.memory_allocated() / 1e9)
     gen = torch.Generator(device=DEVICE).manual_seed(10)
     bf16 = torch.bfloat16
-    entry = {"name": "flash_attention", "route": "cuda",
-             "path": "tensor_cores",
-             "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-             "replaces": "src/repro/kernels/flash_attention.py:121"}
     out = []
     for name, shape, case, args in (
             ("vision", "vision D 128, Hkv 8 of 32", VISION_PREFILL_CASE,
@@ -4693,9 +4778,183 @@ def cross_phases():
              (PROMPTS, 6, 6, WHISPER_ENCODER_SEQ, 64, bf16))):
         row = time_attention_case(gen, name, *args,
                                   causal=name == "vision")
-        out.append({**entry, "shape": shape,
-                    "launches": launches[name]["flash_attention_tensor_cores"],
-                    "max_abs_err": ATTN_ERR[case], **row})
+        out.append(served_entry(shape, launches[name], ATTN_ERR[case], row))
+    return out
+
+
+# -- the configurations served last: chatglm3-6b, nemotron-4-340b (4 of 96
+# -- layers) and llama4-maverick-400b-a17b (2 of 48 layers) ------------------
+
+GLM_ARCH = "chatglm3-6b"
+NEMOTRON_ARCH = "nemotron-4-340b"
+LLAMA4_ARCH = "llama4-maverick-400b-a17b"
+# nemotron at full width: 4 layers are 46.5 GB in bf16 (six would be 60.3
+# GB, too close to 80 beside the prefill waves and the logit checks, as
+# dbrx's ten); its f32 gate runs on 1 layer drawn anew (51.6 GB in f32,
+# 37.7 of them the untied embedding and head), the served model freed
+NEMOTRON_LAYERS, NEMOTRON_GATE_LAYERS = 4, 1
+# llama4 at full width: its first 2 layers (one dense, one MoE of all 128
+# experts) are 37.1 GB in bf16; two MoE layers would be about 70.  In f32
+# the 2 layers are 74.2 GB, so the f32 gate cuts the MoE layer to 32
+# experts (25.9 GB), drawn from the same seed: a cut of the gate, not of
+# the served model
+LLAMA4_LAYERS, LLAMA4_GATE_EXPERTS = 2, 32
+# param_count() of each cut (arch, layers, experts or None for all), held
+# to both packages' configs by tests/test_torch_lm_geometry.py
+CUT_PARAM_COUNTS = {
+    (GLM_ARCH, 28, None): 6_243_450_880,
+    (NEMOTRON_ARCH, NEMOTRON_LAYERS, None): 23_253_368_832,
+    (NEMOTRON_ARCH, NEMOTRON_GATE_LAYERS, None): 12_891_230_208,
+    (LLAMA4_ARCH, LLAMA4_LAYERS, None): 18_553_262_080,
+    (LLAMA4_ARCH, LLAMA4_LAYERS, LLAMA4_GATE_EXPERTS): 6_473_175_040,
+}
+# (name, arch, seed, H, Hkv, D) in the order served
+LATE_MODELS = (("chatglm3", GLM_ARCH, 11, 32, 2, 128),
+               ("nemotron", NEMOTRON_ARCH, 12, 96, 8, 192),
+               ("llama4", LLAMA4_ARCH, 13, 40, 8, 128))
+
+
+def cut_of(arch, layers=None, experts=None):
+    """``arch``'s config cut to ``layers`` (and ``experts``), or its
+    reduced config in a CPU rehearsal; with the cut's expected
+    param_count() (None when rehearsing)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    layers = layers or full.num_layers
+    if LM_REDUCED:
+        cfg = full.reduced()
+        return dataclasses.replace(cfg, num_layers=min(
+            layers, cfg.num_layers)), None
+    over = {"num_layers": layers}
+    if experts is not None:
+        over["num_experts"] = experts
+    return dataclasses.replace(full, **over), \
+        CUT_PARAM_COUNTS[(arch, layers, experts)]
+
+
+def glm_path(seed):
+    """Serve chatglm3-6b at full width and depth through ``lm_path``: its
+    f32 copy (25.0 GB) fits beside the bf16 model, so both logit gates
+    run at all 28 layers."""
+    return lm_path(GLM_ARCH, "chatglm3", seed,
+                   CUT_PARAM_COUNTS[(GLM_ARCH, 28, None)])[0]
+
+
+def nemotron_path(seed):
+    """Serve nemotron-4-340b at full width, its first NEMOTRON_LAYERS
+    layers: static generate and ServeLoop (flash launches layers x
+    prefills on the tensor cores, none at decode), the bf16 logit gate,
+    the serving metrics; then, the served model freed, its first
+    NEMOTRON_GATE_LAYERS drawn anew from the same seed (bit sums checked
+    equal) and converted to f32: the f32 gate, whose wave runs the
+    CUDA-core kernel at D 192 once a layer.  Returns the serving
+    launches."""
+    import gc
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    cfg, want = cut_of(NEMOTRON_ARCH, NEMOTRON_LAYERS)
+    model = init_cut(cfg, seed, "nemotron_init", want, mlp=cfg.mlp_kind,
+                     vocab=cfg.vocab_size)
+    prompts, launches, prefills, _ = serve_traffic(
+        cfg, model, fa.launch_counts, fa.reset_launch_counts,
+        "nemotron_main_path")
+    flash_launches_exact(launches, cfg.num_layers * prefills,
+                         "tensor_cores", f"{cfg.name}: {cfg.num_layers} "
+                         f"layers x {prefills} prefills, none at decode")
+    toks = torch.as_tensor(prompts[:PROMPTS], dtype=torch.long,
+                           device=DEVICE)
+    logit_gate(cfg, model, toks, "bfloat16", "nemotron_logits")
+    serving_metrics(cfg, model, toks, fa.launch_counts, "nemotron_serving")
+    bits = weight_bits(model, NEMOTRON_GATE_LAYERS)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg1, want1 = cut_of(NEMOTRON_ARCH, NEMOTRON_GATE_LAYERS)
+    m32 = init_cut(cfg1, seed, "nemotron_gate_init", want1)
+    if weight_bits(m32, cfg1.num_layers) != bits:
+        raise AssertionError("the gate's model differs from the served "
+                             "model's first layers")
+    m32.float()
+    f32_wave, _ = logit_gate(cfg1, m32, toks, "float32", "nemotron_logits")
+    flash_launches_exact(f32_wave, cfg1.num_layers, "cuda_cores",
+                         f"{cfg.name} f32 prefill wave")
+    del m32
+    return launches
+
+
+def llama4_path(seed):
+    """Serve llama4-maverick-400b-a17b at full width, its first
+    LLAMA4_LAYERS layers (one dense, one MoE of all 128 experts, top 1,
+    a shared expert), through ``serve_moe``; a decode step's expert bytes
+    and their bound beside its ms (dropless: it reads every expert);
+    then, the served model freed, the same layers with
+    LLAMA4_GATE_EXPERTS experts drawn anew from the same seed (the leaves
+    drawn before the MoE's checked equal) and converted to f32: the f32
+    gate (free runs, every route equal), its wave on the CUDA cores.
+    Returns the serving launches."""
+    import gc
+    import torch
+    cfg, want = cut_of(LLAMA4_ARCH, LLAMA4_LAYERS)
+    model, toks, launches, rec = serve_moe(cfg, seed, "llama4", want)
+    moe_at = [f"blocks.{i}.mlp." for i, b in enumerate(model.blocks)
+              if b.kind == "moe"]
+    expert_bytes = sum(p.numel() * p.element_size()
+                       for n, p in model.named_parameters()
+                       if ".mlp.experts." in n)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    emit(phase="llama4_decode_bound",
+         decode_ms_per_step=rec["decode_ms_per_step"],
+         expert_bytes=expert_bytes,
+         expert_bound_ms=expert_bytes / HBM_BYTES_PER_S * 1e3,
+         weight_bytes=weight_bytes,
+         weight_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+         bound_by="bytes")
+    bits = weight_bits(model, cfg.num_layers, skip=moe_at)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32, want32 = cut_of(LLAMA4_ARCH, LLAMA4_LAYERS, LLAMA4_GATE_EXPERTS)
+    m32 = init_cut(cfg32, seed, "llama4_gate_init", want32,
+                   experts=cfg32.num_experts)
+    if weight_bits(m32, cfg32.num_layers, skip=moe_at) != bits:
+        raise AssertionError("the gate's model differs from the served "
+                             "model outside its MoE leaves")
+    m32.float()
+    f32_wave = moe_logit_gate(cfg32, m32, toks, "float32", "llama4_logits")
+    flash_launches_exact(f32_wave, cfg32.num_layers, "cuda_cores",
+                         f"{cfg.name} f32 prefill wave")
+    del m32
+    return launches
+
+
+def late_phases():
+    """Slice 9: the three configurations of ARCH_IDS the card had not
+    served, in LATE_MODELS' order.  For each: the tensor-core flash kernel
+    against its plain version at its prefill shape (both layouts, a
+    dropped key tile that must fail); the model served (``glm_path``,
+    ``nemotron_path``, ``llama4_path``) and freed; the kernel's times at
+    that shape.  Returns the kernels line entries."""
+    import gc
+    import torch
+    paths = {"chatglm3": glm_path, "nemotron": nemotron_path,
+             "llama4": llama4_path}
+    out = []
+    for name, arch, seed, h, hkv, d in LATE_MODELS:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        err = prefill_shape_vs_plain(gen, name, h, hkv, d)
+        launches = paths[name](seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(phase=name + "_freed",
+             device_gb=torch.cuda.memory_allocated() / 1e9)
+        row = time_attention_case(gen, name, PROMPTS, h, hkv, PROMPT_LEN, d,
+                                  torch.bfloat16)
+        out.append(served_entry(f"{name} D {d}, Hkv {hkv} of {h}",
+                                launches, err, row))
     return out
 
 
@@ -6299,14 +6558,16 @@ def main() -> int:
     mla_phases()
     # 16.-17. vision (llama-3.2-vision-11b) and audio (whisper-tiny)
     kernels += cross_phases()
-    # 18. training granite-3-2b
+    # 18. chatglm3-6b, nemotron-4-340b (4 layers), llama4-maverick (2)
+    kernels += late_phases()
+    # 19. training granite-3-2b
     kernels += train_phases()
-    # 19. training rwkv6-1.6b and recurrentgemma-9b
+    # 20. training rwkv6-1.6b and recurrentgemma-9b
     kernels += scan_train_phases()
-    # 20. the pod dry run's counters against the card
+    # 21. the pod dry run's counters against the card
     dryrun_vs_card()
 
-    # 21. the card, the kernels line, and the result
+    # 22. the card, the kernels line, and the result
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

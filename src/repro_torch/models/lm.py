@@ -176,10 +176,13 @@ class LM(nn.Module):
 
 
 def _fill(w: nn.Parameter, fan_in: int, gen: torch.Generator) -> None:
-    """normal(0, 1) / sqrt(fan_in), drawn in f32, as the JAX ``_init``."""
+    """normal(0, 1) / sqrt(fan_in), drawn in f32, as the JAX ``_init``.
+    Scaled in place: one f32 temporary, not two (nemotron-4-340b's
+    embedding is 18.9 GB in f32, beside its 46.5 GB of bf16 weights at 4
+    layers)."""
     z = torch.randn(w.shape, generator=gen, dtype=torch.float32,
                     device=w.device)
-    w.copy_(z * fan_in ** -0.5)
+    w.copy_(z.mul_(fan_in ** -0.5))
 
 
 @torch.no_grad()
